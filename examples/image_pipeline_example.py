@@ -1,16 +1,14 @@
-"""Image pipeline on the fused 2D pyramid: transform -> threshold ->
-reconstruct, with the precision dial.
+"""Image pipeline on the 2D pyramid: transform -> threshold -> reconstruct,
+with the precision dial.
 
-On a TPU the forward/inverse 2D FWT each run as two Pallas passes (one
-HBM read + one transposed write per axis, every butterfly level in VMEM —
-ops/pallas_pyramid.py); on CPU the same API transparently uses the
-separable XLA path, so this example runs anywhere:
+The forward/inverse 2D FWT run as the separable XLA path on every backend,
+so this example runs anywhere:
 
     JAX_PLATFORMS=cpu python examples/image_pipeline_example.py
 
 Reference anchor: the 2D facade (BasicTransform.java:361-474) + the
 compression demo subject (examples in the reference repo); the precision
-dial is TPU-build-only.
+dial is this library's addition.
 """
 import os
 

@@ -1,8 +1,8 @@
-"""Multi-chip sharding tour (runs on any mesh — real TPUs or virtual CPU
+"""Multi-device sharding tour (runs on any mesh — real GPUs or virtual CPU
 devices).
 
 The reference's parallelism is a single-JVM thread pool; this is the layer
-the TPU build adds. Run with 8 virtual devices:
+this library adds. Run with 8 virtual devices:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/sharded_example.py

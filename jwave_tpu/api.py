@@ -151,9 +151,8 @@ class FastWaveletTransform(WaveletTransform):
         return ifwt(y, self.wavelet, level)
 
     def forward_2d(self, mat, level_rows=None, level_cols=None):
-        """2D forward via transforms.fwt.fwt2d — the fused two-pass Pallas
-        pyramid on eligible TPU shapes (ops/pallas_pyramid.py), the
-        separable base path otherwise."""
+        """2D forward via transforms.fwt.fwt2d (level-range checks up
+        front, then the separable pyramid)."""
         from .transforms.fwt import fwt2d as _fwt2d
 
         return self._jitted(("f2p", level_rows, level_cols), partial(
@@ -162,8 +161,7 @@ class FastWaveletTransform(WaveletTransform):
         ))(jnp.asarray(mat))
 
     def reverse_2d(self, mat, level_rows=None, level_cols=None):
-        """2D inverse via transforms.fwt.ifwt2d (fused Pallas inverse
-        passes on eligible TPU shapes)."""
+        """2D inverse via transforms.fwt.ifwt2d."""
         from .transforms.fwt import ifwt2d as _ifwt2d
 
         return self._jitted(("r2p", level_rows, level_cols), partial(
@@ -407,7 +405,7 @@ class ContinuousWaveletTransform(BasicTransform):
         return cwt_direct(jnp.asarray(signal), scales, self.cwavelet, sampling_rate)
 
     def transform_fft(self, signal, scales, sampling_rate: float = 1.0) -> CWTResult:
-        """FFT-based CWT (ContinuousWaveletTransform.java:183-229). On TPU the
+        """FFT-based CWT (ContinuousWaveletTransform.java:183-229). Here the
         scale loop — which the reference parallelizes over a thread pool
         (:511-565) — is a single batched kernel, so this is also the
         "parallel" variant."""

@@ -1,10 +1,9 @@
-"""Precision and platform policy.
+"""Precision and routing dials.
 
-The reference computes in Java ``double`` everywhere. On TPU the native
-matmul/conv path is float32/bfloat16; float64 runs (for bit-level validation
-against the reference's PyWavelets-derived golden vectors) use the CPU
-backend or x64 emulation. Correctness gates in tests/ run in float64 on CPU;
-throughput benchmarks run float32 on TPU — see SURVEY.md §7 "Hard parts".
+The reference computes in Java ``double`` everywhere. Correctness gates in
+tests/ run in float64 on the CPU backend; chip_smoke.py recomputes the
+float64 golden vectors on the GPU, which runs float64 natively, and runs
+the main path in float32 at full width.
 """
 from __future__ import annotations
 
@@ -32,10 +31,12 @@ _CONV_PRECISION = "highest"
 
 
 def set_conv_precision(name: str):
-    """Matmul/conv precision on TPU MXUs: 'highest' (true float32 via 6-pass
-    bf16 — the default; perfect-reconstruction claims hold), 'high' (3-pass
-    bf16, ~1e-4 error, ~2x faster), or 'default' (single-pass bf16, ~1e-2
-    error, fastest). CPU is unaffected (always exact float32/float64)."""
+    """Precision of the library's f32 matmuls and convolutions, passed as
+    ``lax.Precision``: 'highest' (true float32 — the default; the
+    perfect-reconstruction claims hold), 'high' or 'default' (the backend
+    may use faster reduced-precision arithmetic; on an NVIDIA GPU
+    'default' permits TF32, about 1e-3 relative error). CPU is unaffected
+    (always exact float32/float64)."""
     global _CONV_PRECISION
     if name not in ("default", "high", "highest"):
         raise ValueError(f"unknown precision {name!r}")
@@ -56,12 +57,12 @@ _MXU_DFT = "auto"
 
 
 def set_mxu_dft(mode: str):
-    """Route small fixed-length DFTs (Wigner-Ville lag transforms,
-    scattering fft2 units) through dense MXU matmuls (ops.mxu_dft):
-    'auto' (TPU backends, N <= 512, f32/c64 — the default; the matmul
-    form measured faster than the XLA FFT engine there), 'on' (force on
-    any backend/dtype — tests use this on the f64 CPU backend), or 'off'
-    (always the XLA FFT form)."""
+    """Route small fixed-length DFTs (Wigner-Ville lag transforms) through
+    dense matmuls (ops.mxu_dft), and pick scattering's matmul/tile
+    formulations: 'auto' (the default: scattering keeps its matmul
+    formulations, the DFT consumers take the XLA FFT), 'on' (force the
+    matmul DFT on any backend/dtype — tests use this on the f64 CPU
+    backend), or 'off' (always the XLA FFT form)."""
     global _MXU_DFT
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"unknown mxu_dft mode {mode!r}")
@@ -76,10 +77,10 @@ _MXU_BUTTERFLY = "auto"
 
 
 def set_mxu_butterfly(mode: str):
-    """Route the FWT/WPT butterfly through MXU tile matmuls
-    (ops.mxu_butterfly): 'auto' (TPU backends, f32/bf16, lane-aligned
-    lengths — the default), 'on' (force on any backend/dtype — tests use
-    this on the f64 CPU backend), or 'off' (always the XLA conv form)."""
+    """Route the FWT/WPT butterfly through banded tile matmuls
+    (ops.mxu_butterfly, ops.mxu_wpt, ops.mxu_pyramid): 'on' (on any
+    backend/dtype where the shape fits — tests use this on the f64 CPU
+    backend); 'auto' (the default) and 'off' take the XLA conv form."""
     global _MXU_BUTTERFLY
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"unknown mxu_butterfly mode {mode!r}")

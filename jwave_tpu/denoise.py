@@ -31,9 +31,8 @@ def hard_threshold(c, tau):
 def mad_sigma(detail):
     """Noise scale estimate: median(|W_1|) / 0.6745 (Donoho-Johnstone).
 
-    The median routes through radix-select on TPU (utils/select.py):
-    the full bitonic sort was the dominant cost of the denoise rows
-    (docs/PERFORMANCE.md), and the select returns the identical value."""
+    The median is ``jnp.median`` (utils/select.py keeps a radix-select
+    alternative that returns the identical value)."""
     return median_abs(detail) / 0.6745
 
 

@@ -1,9 +1,9 @@
-"""TPU-native compute kernels (XLA convolution forms + Pallas variants).
+"""Compute kernels: XLA convolution forms and banded tile-matmul variants.
 
 These are the "native equivalents" of the reference's hand-tuned Java inner
 loops: the shared analysis/synthesis butterfly (Wavelet.java:236-303) and the
 MODWT circular convolutions (MODWTTransform.java:677-837), reformulated as
-batched, statically-shaped XLA convolutions that tile onto the TPU MXU/VPU.
+batched, statically-shaped XLA convolutions.
 """
 from .butterfly import butterfly_forward, butterfly_reverse
 from .circular import (

@@ -10,7 +10,7 @@ and the adjoint (Wavelet.java:277-303, synthesis):
 
     y[(2i+j) mod h] += approx[i]*rec_lo[j] + detail[i]*rec_hi[j]
 
-TPU formulation: the analysis step is a stride-2 cross-correlation of the
+Formulation: the analysis step is a stride-2 cross-correlation of the
 circularly-extended signal with a 2-output-channel filter stack; the
 synthesis step is a circular convolution of the zero-upsampled coefficient
 channels with the (flipped) synthesis filters. Both are single

@@ -2,7 +2,7 @@
 
 The reference applies the butterfly level-by-level, touching the whole
 array once per level (WaveletPacketTransform.java:96-124) — L full passes
-over HBM. The noble identities collapse L levels into ONE circular
+over device memory. The noble identities collapse L levels into ONE circular
 convolution: the packet at path (c_1, ..., c_L) (c = lo|hi per level) is
 
     out_b[i] = sum_m x[(2^L i + m) mod N] * F_b[m],
@@ -10,8 +10,7 @@ convolution: the packet at path (c_1, ..., c_L) (c = lo|hi per level) is
 
 with U_k = upsample-by-k and (*) linear convolution (host-precomputed).
 The fused form reads the input once and runs as a 2^L-output-channel
-strided conv — im2col onto the TPU MXU — trading cheap extra FLOPs for an
-L-fold cut in HBM traffic. The inverse uses the adjoint (transposed conv
+strided conv, trading extra FLOPs for an L-fold cut in memory traffic. The inverse uses the adjoint (transposed conv
 with the same composite bank via lhs dilation).
 
 Packet ordering matches the reference exactly: level-1 choice is the most

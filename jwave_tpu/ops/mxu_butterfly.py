@@ -1,4 +1,4 @@
-"""MXU-tiled FWT/WPT butterfly — stride-2 analysis/synthesis as tile matmuls.
+"""Tiled FWT/WPT butterfly — stride-2 analysis/synthesis as tile matmuls.
 
 Reference semantics: jwave/transforms/wavelets/Wavelet.java:236-303 — the
 circular stride-2 analysis pair
@@ -6,16 +6,14 @@ circular stride-2 analysis pair
     approx[i] = sum_m x[(2i+m) mod h] * dec_lo[m]
     detail[i] = sum_m x[(2i+m) mod h] * dec_hi[m]
 
-and its synthesis adjoint. The XLA stride-2 conv formulation
-(``ops.butterfly``) is correct everywhere but tops out near ~3 Gsamples/s
-at HIGHEST precision: the conv emitter feeds the MXU one input channel at a
-time, leaving the systolic array mostly idle.
+and its synthesis adjoint, as an alternative to the XLA stride-2 conv
+formulation (``ops.butterfly``), which every backend routes to.
 
-TPU formulation: tile the signal to (t, 128) lanes. Every 128-lane output
+Formulation: tile the signal to (t, 128) lanes. Every 128-lane output
 tile k covers inputs ``x[256k + 2i + m] = x3[(2k+e) mod t, l]`` with
 ``m = 128e + l - 2i``, so the butterfly is a short sum over ``e`` of dense
 matmuls with constant tiles ``W_e[l, s*128 + i] = f_s[128e + l - 2i]``
-(both subbands share one RHS) that saturate the MXU. To minimise HBM
+(both subbands share one RHS). To minimise device-memory
 gather traffic the ``e`` terms are grouped in *pairs*: the signal viewed as
 (to, 256) tile-pairs gives e=2s,2s+1 as ONE contiguous (256, 256) matmul of
 the pair array rolled by s — for every shipped bank (M <= 76, so E <= 3)
@@ -25,14 +23,9 @@ the filter outruns the signal (tap sums accumulate across ``e`` exactly
 like the reference's modular indexing). The synthesis pass reuses the same
 tile construction transposed (adjoint), scattering pair blocks back with
 positive rolls. Requires h % 256 == 0; callers fall back to the conv path
-otherwise (ops.butterfly routes via ``mxu_butterfly_eligible``).
-
-Measured (v5e, 64x65536 f32, db4, HIGHEST): 8-level FWT forward 0.285 ms
-= 14.7 Gsamples/s and inverse 0.273 ms = 15.4 Gsamples/s, vs 1.37 ms for
-the conv butterfly (4.8x). The two subbands are accumulated in separate
-matmuls so each lands contiguous — a fused (256,256) RHS plus column
-deinterleave measured ~2.3x slower on the forward pass. 2D/3D/WPT-unfused
-paths inherit the same kernel through ops.butterfly.
+otherwise (ops.butterfly routes via ``mxu_butterfly_eligible``). The two
+subbands are accumulated in separate matmuls so each lands contiguous.
+2D/3D/WPT-unfused paths inherit the same form through ops.butterfly.
 """
 from __future__ import annotations
 
@@ -43,7 +36,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from .. import config as _config
-from .mxu_common import LANES, auto_backend_ok, dot as _dot
+from .mxu_common import LANES, dot as _dot
 
 
 @lru_cache(maxsize=256)
@@ -100,22 +93,19 @@ def _dense_for(f_lo, f_hi, h: int) -> np.ndarray:
 
 
 def mxu_butterfly_eligible(x) -> bool:
-    """Routing policy for ops.butterfly: config dial + shape/backend gates.
+    """Routing policy for ops.butterfly: the tiles run only when the
+    ``config.set_mxu_butterfly`` dial is "on" ("auto" and "off" take the
+    XLA conv form) and the shape fits.
 
     Two regimes: pair-tiled matmuls for h % 256 == 0, and a single dense
     (h, h) matmul for small heads (h <= 128, even) — together they cover
     every level of a pow-2 pyramid, so deep 2D/3D transforms never fall
-    back to the conv emitter mid-pyramid.
+    back to the conv form mid-pyramid.
     """
-    mode = _config.mxu_butterfly()
-    if mode == "off":
+    if _config.mxu_butterfly() != "on":
         return False
     h = x.shape[-1]
-    if not (h % (2 * LANES) == 0 or (h <= LANES and h % 2 == 0 and h >= 4)):
-        return False
-    if mode == "on":
-        return True
-    return auto_backend_ok(x)
+    return h % (2 * LANES) == 0 or (h <= LANES and h % 2 == 0 and h >= 4)
 
 
 def butterfly_forward_mxu(x, dec_lo, dec_hi, precision=None):
@@ -180,12 +170,11 @@ def dual_butterfly_forward_mxu(xa, xb, filters_a, filters_b, precision=None):
     """TWO analysis butterflies with DIFFERENT filter banks in ONE matmul
     round per tile-pair term — the DTCWT inner loop (transforms/dtcwt.py).
 
-    The dual-tree levels are latency-bound, not FLOP-bound: at the bench
-    shape each tree's per-level matmul is a skinny (B*to, 256) x (256, 128)
-    that leaves the MXU idle between issues, so halving the number of
-    matmul rounds (trees share the LHS rows, the two banks ride as extra
-    RHS columns) buys wall clock even though each op now does both banks'
-    FLOPs. Returns ((a_a, d_a), (a_b, d_b)) as separate (..., h/2) arrays.
+    Each tree's per-level matmul is a skinny (B*to, 256) x (256, 128);
+    this halves the number of matmul rounds (trees share the LHS rows, the
+    two banks ride as extra RHS columns) at the price of each op doing
+    both banks' FLOPs. Unrouted. Returns ((a_a, d_a), (a_b, d_b)) as
+    separate (..., h/2) arrays.
     """
     if precision is None:
         precision = _config.conv_precision()

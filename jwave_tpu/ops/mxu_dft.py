@@ -1,13 +1,8 @@
-"""Dense DFT on the MXU — beat the FFT engine at small transform lengths.
+"""Dense DFT as real matmuls — an alternative to the FFT at small lengths.
 
-Motivation (measured, docs/PERFORMANCE.md "Speed-of-light accounting"):
-XLA's TPU FFT delivers ~0.3 TFLOP/s on *batched small* transforms (512-
-point lag FFTs, decimated scattering grids) while a plain matmul runs at
-35.6 TFLOP/s at true-f32 (`HIGHEST`) on the same chip.  For length N the
-dense DFT issues ~8 N^2 FLOPs against the FFT's ~5 N log2 N — a ratio of
-91x at N=512 — but the engine-rate ratio is ~110x, so the O(N^2) form
-*wins on wall clock* for N <= ~512, and by a growing margin below that.
-Structure recovers more:
+For length N the dense DFT issues ~8 N^2 FLOPs against the FFT's
+~5 N log2 N, so it can only win where matmuls run far faster than the
+FFT does. Structure recovers some of the gap:
 
 - complex x complex uses the 3-multiplication (Karatsuba) split, 6 N^2
   FLOPs instead of 8 N^2;
@@ -20,11 +15,11 @@ Structure recovers more:
   TWO real matmuls for the whole real spectrum (`hermitian_spectrum`).
 
 This is a *routing* layer, not a replacement: `transforms/fft.py` remains
-the XLA-FFT front door; callers with small fixed N (wvd, scattering)
-route here when `eligible()` says the matmul form wins.  The reference
-has no analog — its DFT (DiscreteFourierTransform.java:73-117) is the
-O(N^2) form as a *fallback*, never as the fast path; on the MXU the
-table turns.
+the XLA-FFT front door. Consumers with small fixed N (wvd) take the matmul
+form only when ``config.set_mxu_dft("on")`` forces it (:func:`eligible`);
+tools/dft_crossover.py measures where, if anywhere, it wins on a device.
+The reference has no analog — its DFT (DiscreteFourierTransform.java:73-117)
+is the O(N^2) form as a *fallback*, never as the fast path.
 """
 from __future__ import annotations
 
@@ -34,17 +29,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from .. import config
-from .mxu_common import TPU_BACKENDS, dot
-
-#: matmul-DFT vs XLA-FFT crossover (measured on v5e at HIGHEST precision,
-#: tools/dft_crossover.py): the generic 3-matmul complex form wins only at
-#: the engine's pathological batched-512 shape (0.35 TFLOP/s there, 1.9 T
-#: at N=128), so generic pow-2 lengths are NOT auto-routed.  The gate
-#: below serves the *structured* consumers, where the measured margins are
-#: real: Hermitian lag spectra (4.4x at the WVD shape), subsampled
-#: inverses (24.5x at the scattering lowpass shape), and Bluestein
-#: replacement (a non-pow-2 DFT via matmul beats two 2N pow-2 FFTs).
-MAX_MATMUL_N = 512
+from .mxu_common import dot
 
 
 @lru_cache(maxsize=64)
@@ -67,23 +52,10 @@ def _cs(n, inverse, out_indices, dtype):
     return jnp.asarray(c, dtype), jnp.asarray(s, dtype)
 
 
-def eligible(n: int, dtype, max_n: int | None = None) -> bool:
-    """auto-routing gate: TPU backend, MXU-native word size, and a length
-    where the matmul form measured faster than the FFT engine.  Callers
-    exploiting extra structure (Hermitian symmetry halves K; real input /
-    output drops a matmul) pass a larger measured ``max_n``."""
-    import jax
-
-    mode = config.mxu_dft()
-    if mode == "off":
-        return False
-    if mode == "on":
-        return True
-    return (
-        jax.default_backend() in TPU_BACKENDS
-        and n <= (MAX_MATMUL_N if max_n is None else max_n)
-        and jnp.dtype(dtype) in (jnp.complex64, jnp.float32)
-    )
+def eligible() -> bool:
+    """Routing gate of the matmul-DFT consumers: only the "on" setting of
+    ``config.set_mxu_dft`` selects it ("auto" and "off" take the FFT)."""
+    return config.mxu_dft() == "on"
 
 
 def _last(z, axis):
@@ -156,7 +128,7 @@ def hermitian_spectrum(lags, n_bins: int):
 
     i.e. TWO real matmuls with K = m+1 — this replaces building the
     full 2m+1 lag table and running a generic complex FFT (wvd.py), at
-    half the table HBM and the MXU's rate instead of the FFT engine's.
+    half the table's memory traffic.
     """
     lags = jnp.asarray(lags)
     m = lags.shape[-1] - 1

@@ -1,18 +1,11 @@
-"""Support-restricted 2D spectral ops on the MXU — the scattering band
+"""Support-restricted 2D spectral ops as matmuls — the scattering band
 convolutions as skinny matmuls.
 
 The 2D scattering network's dominant cost is ``|ifft2(spec * psi)|`` over
 hundreds of band maps (reference capability anchor: this is a capability
-superset; see transforms/scattering.py). Two measured TPU facts reshape it
-(tools in /tmp round 4, recorded in docs/PERFORMANCE.md):
-
-1. the XLA c64 iFFT2 engine runs ~0.2 TFLOP/s at the (216, 512, 512)
-   scattering shape, while a HIGHEST-precision f32 matmul at the same
-   512-shapes runs ~31-37 TFLOP/s — a two-orders-of-magnitude rate gap;
-2. each psi is a Gaussian bump supported (above amplitude ``eps``) on a
-   small circular box of the frequency plane.
-
-So the inverse transform restricted to the box is TWO skinny complex
+superset; see transforms/scattering.py). Each psi is a Gaussian bump
+supported (above amplitude ``eps``) on a small circular box of the
+frequency plane, so the inverse transform restricted to the box is TWO skinny complex
 matmuls, and the box's offset phases drop out of the MODULUS:
 
     u[y, x] = |sum_{i,j} S[i, j] e^{2pi i y(r0+i)/Py} e^{2pi i x(c0+j)/Px}|

@@ -1,12 +1,11 @@
-"""MXU-tiled composite-filter MODWT — the TPU hot path.
+"""Composite-filter MODWT as banded tile matmuls (``ConvolutionMethod.MXU``).
 
 Reference semantics: jwave/transforms/MODWTTransform.java:256-375 (forward
 cascade W_j = h_j (*) V_{j-1}, V_j = g_j (*) V_{j-1}; inverse = adjoint).
 
-TPU design: instead of running the J-level cascade (VPU roll/FMA — the
-``ops.pallas_modwt`` kernel) or J+1 FFT pairs, each output subband is a
-single circular convolution of the *input* with a host-precomputed
-composite filter
+Instead of running the J-level cascade or J+1 FFT pairs, each output
+subband is a single circular convolution of the *input* with a
+host-precomputed composite filter
 
     F_Wj = h_j * g_{j-1} * ... * g_1        (upsampled per level, f64)
     F_VJ = g_J * ... * g_1
@@ -16,16 +15,12 @@ becomes a short sum of 128x128 matmuls over lane-rolled tiles:
 
     out[k] = sum_e V[(k - e) mod T] @ Q_e,   Q_e[i, l] = F[l - i + 128 e]
 
-which rides the MXU (systolic array) instead of the VPU. Measured on a v5e
-at the bench config (64 x 65536 f32, db4, J=5): 0.54 ms at HIGHEST precision
-(7.8 Gsamples/s, 3.7x the Pallas cascade, at the 6-pass-bf16 MXU roofline)
-and 0.13 ms at DEFAULT (the HBM bandwidth roofline). The inverse reuses the
-same tiles transposed with negative rolls (correlation = reversed
-convolution), identical to the FFT path's conjugate-spectra adjoint.
+The inverse reuses the same tiles transposed with negative rolls
+(correlation = reversed convolution), identical to the FFT path's
+conjugate-spectra adjoint.
 
 FLOP cost grows with the composite support (sum over subbands of
-ceil-tiles(support)), so AUTO only routes here while the total tile count
-stays under ``MXU_TILE_BUDGET`` — beyond that the telescoped FFT path wins.
+ceil-tiles(support), :func:`mxu_tile_count`). AUTO never routes here.
 """
 from __future__ import annotations
 
@@ -36,14 +31,6 @@ import jax.numpy as jnp
 
 from .. import config
 from .mxu_common import LANES, dot as _dot
-
-#: AUTO routes MODWT to this path while sum(per-subband 128-tile counts)
-#: stays at or under this budget; past it the telescoped-FFT path is faster.
-#: Calibrated on a v5e: one (rows,128)x(128,128) HIGHEST matmul costs
-#: ~38 us per 32768 rows, the FFT path ~3.8 ms at the same size => crossover
-#: near 98 tiles; 96 leaves margin for the FFT path's J-dependence.
-MXU_TILE_BUDGET = 96
-
 
 def _base_key(wavelet):
     """Value-key (rescaled base filter bytes) for the tile caches — keying
@@ -113,7 +100,7 @@ def _q_tiles(g0_bytes: bytes, h0_bytes: bytes, level: int, n: int):
 
 
 def mxu_tile_count(wavelet, level: int, n: int) -> int:
-    """Total 128x128 matmul tiles one forward transform costs (AUTO policy).
+    """Total 128x128 matmul tiles one forward transform costs.
 
     Derived from the wrapped composite support lengths alone — building the
     actual tile stacks here would materialize O(support) host memory just to
@@ -127,12 +114,12 @@ def mxu_tile_count(wavelet, level: int, n: int) -> int:
 
 def mxu_applicable(x, level: int) -> bool:
     """Lane-aligned real input of any rank; every backend can run the
-    matmul form (CPU f64 included — tests use it), but only TPU profits."""
+    matmul form (CPU f64 included — tests use it)."""
     return x.shape[-1] % LANES == 0 and x.shape[-1] > 0
 
 
 def modwt_mxu(x, wavelet, level: int, precision=None):
-    """Forward MODWT of (B, N) via lane-rolled MXU tile matmuls.
+    """Forward MODWT of (B, N) via lane-rolled tile matmuls.
 
     Returns (B, level+1, N) rows [W_1 .. W_J, V_J], matching
     MODWTTransform.java:256-306 exactly (f64) / to f32 roundoff (HIGHEST).

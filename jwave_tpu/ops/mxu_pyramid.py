@@ -1,18 +1,16 @@
-"""Fused multi-level FWT pyramid for the MXU — split butterflies plus one
-dense composed-tail matmul, ONE output assembly.
+"""Fused multi-level FWT pyramid as tile matmuls — split butterflies plus
+one dense composed-tail matmul, ONE output assembly.
 
 Reference semantics: jwave/transforms/FastWaveletTransform.java:71-153 —
 per level the analysis butterfly rewrites the shrinking prefix ``h = N,
 N/2, ..`` of one array in place (layout ``[A_L | D_L | ... | D_1]``). The
 round-2 level-unrolled formulation reproduced that literally: every level
 sliced the prefix, ran the butterfly, and re-concatenated head+tail — a
-full-array HBM copy per level, which left the 2D/3D separable transforms
-at 7%/4% of their bandwidth bound (BENCH_r02 fwt2d 0.61 ms / fwt3d
-4.15 ms).
+full-array copy per level.
 
-TPU formulation here:
+Formulation here:
 
-1. Levels with head size ``h > DENSE_HEAD`` run the pair-tiled MXU
+1. Levels with head size ``h > DENSE_HEAD`` run the pair-tiled
    butterfly in SPLIT form (ops.mxu_butterfly.butterfly_forward_mxu_split):
    approx feeds the next level directly, detail blocks are parked —
    nothing is concatenated mid-pyramid.
@@ -29,8 +27,8 @@ split synthesis butterflies (butterfly_reverse_mxu_parts) consuming the
 detail slices of the input pyramid.
 
 Routing: gated by the same ``config.set_mxu_butterfly`` dial as the
-single-level tiles ('auto' = TPU backends + f32/bf16; tests force 'on' on
-the f64 CPU backend). The composed tail reorders floating-point additions
+single-level tiles (only "on" selects it; tests force it on the f64 CPU
+backend). The composed tail reorders floating-point additions
 vs the sequential butterflies, so agreement with the conv path is at
 roundoff (~1e-12 in f64), not bitwise.
 """
@@ -42,7 +40,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from .. import config as _config
-from .mxu_common import LANES, auto_backend_ok, dot as _dot
+from .mxu_common import LANES, dot as _dot
 from .mxu_butterfly import (
     _dense_bank,
     butterfly_forward_mxu_split,
@@ -52,8 +50,7 @@ from .mxu_butterfly import (
 #: head sizes at or below this are finished by one dense composed matmul.
 #: 512 is FLOP-neutral vs splitting once more (dense (h,h) = 2h per sample;
 #: split@512 + dense@256 = 768 + 512/2 = 1024 = 2*512) but replaces ~5 ops
-#: with one matmul — measured on the v5e: fwt2d 0.591 -> 0.517 ms, fwt1d
-#: 0.294 -> 0.284 ms (1024 re-loses: 2048 > 1280 FLOPs per sample).
+#: with one matmul (1024 would issue 2048 > 1280 FLOPs per sample).
 DENSE_HEAD = 4 * LANES
 
 
@@ -101,15 +98,10 @@ def pyramid_eligible(x) -> bool:
     pair-tiled split butterfly (needs h % 256 == 0 — automatic for pow-2
     N >= 512), the rest the dense composed tail.
     """
-    mode = _config.mxu_butterfly()
-    if mode == "off":
+    if _config.mxu_butterfly() != "on":
         return False
     n = x.shape[-1]
-    if n < 4 or (n > DENSE_HEAD and n % (2 * LANES) != 0):
-        return False
-    if mode == "on":
-        return True
-    return auto_backend_ok(x)
+    return n >= 4 and (n <= DENSE_HEAD or n % (2 * LANES) == 0)
 
 
 def _levels_done(n: int, tw: int, level: int) -> int:

@@ -1,13 +1,12 @@
-"""MXU-tiled fused WPT — the L-level packet bank as banded tile matmuls.
+"""Tiled fused WPT — the L-level packet bank as banded tile matmuls.
 
 Reference semantics: jwave/transforms/WaveletPacketTransform.java:96-189
 (L sequential butterfly sweeps over all packets). ``ops.composite`` already
 collapses those sweeps into ONE stride-2^L circular conv with the
-noble-identity composite bank; this module reformulates that conv for the
-MXU, which the conv emitter feeds one input channel at a time (~9% of the
-HIGHEST-precision matmul peak at the bench shapes).
+noble-identity composite bank; this module reformulates that conv as
+banded tile matmuls.
 
-TPU formulation: with S = 2^L subbands and the signal tiled to (T, 128)
+Formulation: with S = 2^L subbands and the signal tiled to (T, 128)
 lanes, each 128-lane output tile packs P = 128/S consecutive output
 positions x S subbands as columns c = p*S + s. Output position i of
 subband s reads x[S*i + m], so tile j (positions i = j*P + p) is a short
@@ -24,11 +23,7 @@ facade expects. The synthesis pass is the exact adjoint: the same tiles
 transposed with positive rolls. Requires N % 128 == 0 and S <= 128
 (L <= 7); ``ops.composite`` falls back to the conv form otherwise, and the
 ``config.set_mxu_butterfly`` dial gates routing exactly like the FWT
-butterfly (auto = TPU backends, f32/bf16 only).
-
-Measured (v5e, 64x65536 f32, db4 L6, HIGHEST): forward 0.310 ms =
-13.5 Gsamples/s and inverse 0.212 ms = 19.8 Gsamples/s, vs 1.21 ms for the
-strided-conv composite form (3.9x forward).
+butterfly (tiles only when it is "on").
 """
 from __future__ import annotations
 
@@ -39,7 +34,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from .. import config as _config
-from .mxu_common import LANES, auto_backend_ok, dot as _dot
+from .mxu_common import LANES, dot as _dot
 
 
 @lru_cache(maxsize=128)
@@ -73,15 +68,10 @@ def _bank_for(dec_lo, dec_hi, levels: int, n: int) -> np.ndarray:
 
 def mxu_wpt_eligible(x, levels: int) -> bool:
     """Routing policy for ops.composite: same dial as the FWT butterfly."""
-    mode = _config.mxu_butterfly()
-    if mode == "off":
+    if _config.mxu_butterfly() != "on":
         return False
     n = x.shape[-1]
-    if n % LANES != 0 or (1 << levels) > LANES or levels < 1:
-        return False
-    if mode == "on":
-        return True
-    return auto_backend_ok(x)
+    return n % LANES == 0 and (1 << levels) <= LANES and levels >= 1
 
 
 def wpt_fused_forward_mxu(x, dec_lo, dec_hi, levels: int, precision=None,
@@ -107,8 +97,7 @@ def wpt_fused_forward_mxu(x, dec_lo, dec_hi, levels: int, precision=None,
     x3 = x.reshape((-1, t, LANES))
     ecnt = bank.shape[0]
     # wrap-extend ONCE + static slices instead of a materialized jnp.roll
-    # copy per e term (round 5: the E~5 roll copies were ~40% of the
-    # row's HBM movement; a contiguous slice fuses into the dot read)
+    # copy per e term (a contiguous slice fuses into the dot read)
     ext = jnp.concatenate([x3, x3[:, : ecnt - 1]], axis=1) if ecnt > 1 else x3
     acc = None
     for e in range(ecnt):

@@ -2,8 +2,8 @@
 
 The reference has no distributed execution — its whole parallelism
 inventory is intra-process ForkJoinPool fan-out (SURVEY.md §2.6). This
-package is the new first-class layer the TPU build adds: a `jax.sharding`
-Mesh over ICI/DCN with
+package is the new first-class layer this library adds: a `jax.sharding`
+Mesh over the devices with
 
   * scale-sharded CWT (embarrassingly parallel scales axis),
   * batch sharding for many-signal workloads,

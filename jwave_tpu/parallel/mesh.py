@@ -5,25 +5,25 @@ import numpy as np
 import jax
 from jax.sharding import Mesh
 
+from ..exceptions import JWaveFailure
+
 
 def make_mesh(shape: tuple[int, ...] | int | None = None, axis_names: tuple[str, ...] = ("shard",)) -> Mesh:
-    """Build a Mesh over the available devices.
+    """Build a Mesh over the first ``prod(shape)`` devices, in JAX's order.
 
-    ``shape=None`` uses all devices on one axis. On a pod slice the
-    device order from ``mesh_utils`` keeps neighboring mesh coordinates on
-    neighboring ICI links, so `ppermute` halo exchange and `all_to_all`
-    transposes ride ICI rather than DCN.
+    ``shape=None`` uses all devices on one axis. The GPUs of one host are
+    joined all to all (NVLink), so the device order carries no topology and
+    the mesh follows the algorithm alone.
     """
     if shape is None:
         shape = (len(jax.devices()),)
     elif isinstance(shape, int):
         shape = (shape,)
-    try:
-        from jax.experimental import mesh_utils
-
-        devices = mesh_utils.create_device_mesh(shape)
-    except Exception:
-        devices = np.asarray(jax.devices()[: int(np.prod(shape))]).reshape(shape)
+    need = int(np.prod(shape))
+    have = jax.devices()
+    if need > len(have):
+        raise JWaveFailure(f"make_mesh - mesh {shape} needs {need} devices, have {len(have)}")
+    devices = np.asarray(have[:need]).reshape(shape)
     if len(axis_names) != len(shape):
         axis_names = tuple(f"ax{i}" for i in range(len(shape)))
     return Mesh(devices, axis_names)
@@ -35,7 +35,7 @@ def initialize_distributed(coordinator_address: str | None = None,
     """Multi-host runtime bring-up (`jax.distributed.initialize`).
 
     The reference is single-JVM (SURVEY.md §5.8); this is the multi-host
-    entry the TPU build adds. No-ops when already initialized.
+    entry this library adds. No-ops when already initialized.
     """
     try:
         jax.distributed.initialize(

@@ -4,8 +4,7 @@ Companions to the time-frequency stack: the one-sided-spectrum analytic
 signal, its envelope, and the phase-derivative instantaneous frequency —
 the classical demodulation tools users reach for next to ssq_cwt/vmd
 (e.g. to inspect a VMD mode's AM/FM content). One batched pow-2-capable
-FFT round-trip each (non-pow-2 lengths route through the library's
-Bluestein on TPU backends); jit/vmap/grad-compatible.
+FFT round-trip each, any length; jit/vmap/grad-compatible.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ Reference: jwave/transforms/ContinuousWaveletTransform.java. The FFT path
 (:183-229) computes one signal FFT and, per scale, multiplies by the
 conjugated analytic wavelet spectrum and inverse-transforms; the reference
 parallelizes the scale loop over a ForkJoinPool
-(:511-565, thresholds :616-638). TPU design: the whole scale loop is one
+(:511-565, thresholds :616-638). Here the whole scale loop is one
 batched elementwise multiply + one batched IFFT over a (scales, freq) grid —
 the scales axis is a tensor dimension (and the natural sharding axis across
 chips, see jwave_tpu.parallel). The direct path (:240-260) is kept for
@@ -379,8 +379,6 @@ def _smooth_time_scale(power, scales, dt, boxcar: int = 3):
     # per-scale Gaussian: exp(-0.5 (scale/dt)^2 w^2), w = 2 pi f
     sig = jnp.asarray(np.atleast_1d(np.asarray(scales, dtype=np.float64)) / dt)[:, None]
     ker = jnp.exp(-0.5 * (sig * (2 * np.pi * fr[None, :])) ** 2)
-    # the module's fft/ifft wrappers self-jit on TPU backends (eager FFT
-    # dispatch is UNIMPLEMENTED there — transforms/fft.py)
     ext = jnp.concatenate(
         [power, jnp.zeros(power.shape[:-1] + (pad - n,), power.dtype)], axis=-1
     )

@@ -19,9 +19,9 @@ Tree construction:
   reverse for tree B, so the trees stay half a sample apart at every
   scale (the Hilbert-pair condition).
 
-TPU formulation: each tree level is the SAME batched stride-2
+Formulation: each tree level is the SAME batched stride-2
 circular-convolution butterfly the FWT uses (ops/butterfly.py — single
-``lax.conv_general_dilated`` per level, MXU-eligible); the two trees (four
+``lax.conv_general_dilated`` per level); the two trees (four
 in 2D) ride the same compiled program as extra batch rows. Level loops
 unroll at trace time; everything is jit/vmap/grad-compatible and batches
 over leading axes. Inverse = each tree's exact adjoint synthesis,
@@ -103,10 +103,8 @@ def dtcwt(signal, levels: int, level1_wavelet: str = "sym4") -> DTCWTResult:
     fb = get_filter(level1_wavelet)
     (h0a, h1a), (h0b, h1b) = qshift_filters()
 
-    # level 1: tree B sees the signal advanced one sample. (Stacking the
-    # two trees into one batched butterfly was measured 0.012 ms SLOWER
-    # at the bench shape — the stack materialization costs more HBM than
-    # the second op saves in issue overhead.)
+    # level 1: tree B sees the signal advanced one sample (two butterflies:
+    # stacking the trees would materialize the stack)
     ya = butterfly_forward(x, fb.dec_lo, fb.dec_hi)
     yb = butterfly_forward(jnp.roll(x, -1, axis=-1), fb.dec_lo, fb.dec_hi)
     half = x.shape[-1] // 2
@@ -115,11 +113,8 @@ def dtcwt(signal, levels: int, level1_wavelet: str = "sym4") -> DTCWTResult:
     highs = [jax.lax.complex(da, db) / _SQRT2]
     for _ in range(1, levels):
         # q-shift levels: one butterfly per tree. (A fused dual round that
-        # feeds both banks' columns to both trees in one matmul was built
-        # and MEASURED SLOWER — 0.100 vs 0.075 ms at 8x65536 L6 on the
-        # v5e: the doubled-width outputs and 4-way column slicing cost
-        # more than the second matmul issue. Kernels kept in
-        # ops.mxu_butterfly as a tested dead-end; docs/PERFORMANCE.md.)
+        # feeds both banks' columns to both trees in one matmul is kept in
+        # ops.mxu_butterfly, unrouted; it has not been timed on a GPU.)
         ya = butterfly_forward(la, h0a, h1a)
         yb = butterfly_forward(lb, h0b, h1b)
         half //= 2
@@ -252,8 +247,8 @@ def dtcwt2d(image, levels: int, level1_wavelet: str = "sym4") -> DTCWT2DResult:
     for _ in range(1, levels):
         # q-shift levels: the row bank depends only on rc[0] and the col
         # bank only on rc[1], so products sharing a bank batch together
-        # (2 stacked butterflies per axis; the fused dual-RHS round was
-        # measured slower in 1D — see dtcwt() — and is not used here)
+        # (2 stacked butterflies per axis; the fused dual-RHS round is not
+        # used — see dtcwt())
         h, w = h // 2, w // 2
         rowA = jnp.stack([ll["aa"], ll["ab"]], axis=0)  # row-tree a
         rowB = jnp.stack([ll["ba"], ll["bb"]], axis=0)  # row-tree b

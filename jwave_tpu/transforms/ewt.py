@@ -6,7 +6,7 @@ narrowband mode per lobe — EMD's goal with a well-posed, invertible
 construction (and VMD's sibling: boundaries from the spectrum instead of
 an optimization loop).
 
-TPU-first split: boundary DETECTION is inherently data-dependent (peak
+Split: boundary DETECTION is inherently data-dependent (peak
 picking on the spectrum), so it runs eagerly on the host as
 :func:`ewt_boundaries`; the TRANSFORM itself takes static boundaries and
 is one batched FFT multiply against the (K, N) Meyer bank — fully

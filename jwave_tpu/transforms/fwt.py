@@ -5,7 +5,7 @@ analysis butterfly runs on a shrinking prefix ``h = N, N/2, ..`` of one
 array, producing the in-place pyramid layout ``[A_L | D_L | D_{L-1} | ... |
 D_1]``. Here the level loop is Python-unrolled at trace time (every level is
 one statically-shaped fused conv; shapes shrink geometrically so the total
-work is O(N*M)), which XLA compiles into a single program — the TPU-native
+work is O(N*M)), which XLA compiles into a single program — the
 replacement for the reference's sequential Java loop.
 """
 from __future__ import annotations
@@ -48,22 +48,6 @@ def fwt(x, wavelet, level: int | None = None):
     if level < 0 or level > steps:
         raise JWaveFailure(f"fwt - level {level} out of range [0, {steps}]")
     x = ensure_float(x)
-    if level > 0:
-        from ..ops.pallas_pyramid import (
-            fwt1d_fused, peel_levels_for_vmem, pyramid1d_eligible)
-
-        if pyramid1d_eligible(x, fb):
-            # round 4: the WHOLE pyramid in VMEM — one HBM read, one write
-            # (ops.pallas_pyramid); falls through to the XLA fused pyramid
-            # on ineligible shapes/backends
-            return fwt1d_fused(x, fb.name, level)
-        peel = peel_levels_for_vmem(x, fb)
-        if peel is not None and level > peel:
-            # round 5 hybrid: rows too wide for the VMEM block budget run
-            # their first level(s) on the XLA butterfly; the shrunken head
-            # then fits the fused kernel (one read+write for every
-            # remaining level instead of per-level passes)
-            return _fwt_peeled(x, fb, level, peel)
     if level > 0 and pyramid_eligible(x):
         # fused pyramid: split butterflies + one dense composed tail + ONE
         # output assembly (ops.mxu_pyramid) — no per-level head/tail copies
@@ -76,24 +60,6 @@ def fwt(x, wavelet, level: int | None = None):
         h >>= 1
         l += 1
     return x
-
-
-def _fwt_peeled(x, fb, level: int, peel: int):
-    """Hybrid pyramid: ``peel`` leading levels on the XLA butterfly, the
-    remaining ``level - peel`` fused in VMEM (ops.pallas_pyramid). Output
-    layout identical to :func:`fwt` — the peeled details are already in
-    their final positions."""
-    from ..ops.pallas_pyramid import fwt1d_fused
-
-    n = x.shape[-1]
-    y = x
-    h = n
-    for _ in range(peel):
-        head = butterfly_forward(y[..., :h], fb.dec_lo, fb.dec_hi)
-        y = jnp.concatenate([head, y[..., h:]], axis=-1) if h < n else head
-        h >>= 1
-    z = fwt1d_fused(y[..., :h], fb.name, level - peel)
-    return jnp.concatenate([z, y[..., h:]], axis=-1)
 
 
 def ifwt(y, wavelet, level: int | None = None):
@@ -191,8 +157,8 @@ def fwt_merge(parts: dict):
 
 
 def _check_2d_levels(shape, level_rows, level_cols, who: str):
-    """Same level-range contract as fwt()/ifwt(), enforced BEFORE routing
-    so the fused kernel and the separable fallback reject identically."""
+    """Same level-range contract as fwt()/ifwt(), enforced up front for the
+    whole matrix."""
     for n, lvl, axis in ((shape[-2], level_rows, "rows"), (shape[-1], level_cols, "cols")):
         _check_pow2(n, who)
         steps = exponent_of_two(n)
@@ -202,32 +168,19 @@ def _check_2d_levels(shape, level_rows, level_cols, who: str):
 
 def fwt2d(mat, wavelet, level_rows: int | None = None, level_cols: int | None = None):
     """2D FWT (standard decomposition: the full 1D pyramid along each
-    axis — BasicTransform.java:361-399) of a (R, N) real matrix.
-
-    On TPU f32 with pow-2 extents the whole transform runs as TWO fused
-    Pallas passes (ops.pallas_pyramid) — one HBM read and one transposed
-    write per axis, every level's butterflies staying in VMEM; otherwise
-    the separable XLA path (transforms.ndim over :func:`fwt`).
+    axis — BasicTransform.java:361-399) of a (R, N) real matrix, as the
+    separable XLA path (transforms.ndim over :func:`fwt`).
     """
-    from ..ops.pallas_pyramid import fwt2d_fused, pyramid2d_eligible
     from .ndim import forward_2d
 
     x = ensure_float(jnp.asarray(mat))
-    fb = get_filter(wavelet)
     if x.ndim == 2:
         _check_2d_levels(x.shape, level_rows, level_cols, "fwt2d")
-        if pyramid2d_eligible(x, fb):
-            return fwt2d_fused(x, fb.name, level_rows, level_cols)
     return forward_2d(lambda v, lvl: fwt(v, wavelet, lvl), x, level_rows, level_cols)
 
 
 def ifwt2d(coeffs, wavelet, level_rows: int | None = None, level_cols: int | None = None):
-    """Inverse of :func:`fwt2d` via the separable XLA synthesis path.
-
-    A fused Pallas inverse kernel exists (ops.pallas_pyramid.ifwt2d_fused)
-    but measured SLOWER than this path at every configuration that
-    compiles (round-5 hardware A/B: 0.386-0.514 ms vs 0.285 ms at
-    2048^2 db4 L6), so it is deliberately not routed."""
+    """Inverse of :func:`fwt2d` via the separable XLA synthesis path."""
     from .ndim import reverse_2d
 
     y = ensure_float(jnp.asarray(coeffs))

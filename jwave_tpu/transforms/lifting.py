@@ -1,14 +1,14 @@
-"""Lifting-scheme FWT (polyphase, periodic boundary) — TPU-native.
+"""Lifting-scheme FWT (polyphase, periodic boundary).
 
 The reference *defines* the CDF 5/3, CDF 9/7 and Battle 23 banks but its
 builder refuses to create them (WaveletBuilder.java:363-385): odd-length
 filters break the even-stride butterfly (Wavelet.java:236-260), so JWave
-users cannot actually run these wavelets. The TPU-native answer is the
+users cannot actually run these wavelets. The answer here is the
 lifting scheme (Sweldens' second-generation wavelets; Daubechies-Sweldens
 polyphase factorization): each analysis level is a short chain of
 elementwise FMAs between the even and odd polyphase streams — no
 convolution, no gather, roughly half the FLOPs of the filter form — and
-XLA fuses the whole per-level chain into one bandwidth-bound VPU kernel.
+XLA fuses the whole per-level chain into one bandwidth-bound kernel.
 Perfect reconstruction holds *structurally*: the inverse subtracts the
 identical predictions/updates in reverse order, so reconstruction is exact
 for any lifting coefficients. This closes the reference's documented gap.

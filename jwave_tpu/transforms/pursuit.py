@@ -5,13 +5,13 @@ Greedy sparse decomposition: repeatedly pick the dictionary atom with the
 largest projection energy against the residual and subtract the
 projection. The reference library has no sparse/adaptive decomposition.
 
-TPU-first formulation:
+Formulation:
 
 - The per-iteration search over ALL atoms at ALL shifts is batched FFT
   correlation: ``ifft(fft(r) * conj(G_hat))`` against the stacked (P, N)
   dictionary spectra — a dense (P, N) score map reduced by a flat argmax.
   No tree search, no data-dependent pruning: the dense scan is the FULL
-  greedy step (global argmax), in exactly the shape the VPU wants.
+  greedy step (global argmax), as one dense elementwise-and-reduce.
 - Each dictionary entry is a cosine/sine QUADRATURE PAIR at one (scale,
   frequency); the pick maximizes the energy of the residual's projection
   onto the 2D span (phase-optimal, via the pair's 2x2 Gram inverse), and

@@ -4,13 +4,13 @@ capability superset.
 The reference library stops at raw wavelet coefficients; this module adds
 the order-2 scattering network — the standard translation-invariant,
 deformation-stable signal representation built from the same wavelet
-machinery — designed TPU-first:
+machinery:
 
 - On the spectral hatch (``config.set_mxu_dft('off')``) the whole network
   is THREE batched pow-2 FFT convolution rounds with the envelope spectra
   ``fft(U1)`` shared between the first-order lowpass and the second-order
-  bank. On the default MXU route (rounds 3-5) that FFT work is
-  reassociated onto the matrix units: in 1D, order 1's near-full-rate
+  bank. On the default matmul route that FFT work is reassociated into
+  matmuls and tap convolutions: in 1D, order 1's near-full-rate
   bands are strided circular tap convolutions of the signal itself (a
   Gaussian frequency bump is Gaussian in time, ~100*r taps —
   ops/mxu_bandconv.py), its heavily decimated bands fold psi1's support
@@ -53,23 +53,6 @@ from .fft import fft as _fft, ifft as _ifft
 XI_MAX = 0.35  # top center frequency, cycles/sample (scattering convention)
 
 
-def ifft_mag_two_real(Z, cdtype):
-    """|ifft(Z)| computed as TWO real-input forward FFTs with the index
-    reversal undone: |ifft(Z)[t]| = |fft(Re Z) + i fft(Im Z)|[-t] / m.
-
-    On TPU f32 the c64 inverse engine measured 1.5x slower than two
-    forward real transforms at scattering's batched shapes; the reversal
-    is the flip+roll pair (bin -t == m - t for t >= 1, bin 0 fixed).
-    Backend-independent — the TPU gate lives in the caller — so the
-    reversal formula itself is testable on CPU (round-5 advice)."""
-    m = Z.shape[-1]
-    A = _fft(jnp.real(Z).astype(cdtype))
-    B = _fft(jnp.imag(Z).astype(cdtype))
-    mag = jnp.sqrt((jnp.real(A) - jnp.imag(B)) ** 2
-                   + (jnp.imag(A) + jnp.real(B)) ** 2) / m
-    return jnp.roll(jnp.flip(mag, -1), 1, -1)
-
-
 def _lowpass_matrix(phi_1d: np.ndarray, out_idx: np.ndarray) -> np.ndarray:
     """Sampled circulant of a real-even spectral filter: row i of
     ``iDFT . diag(phi) . DFT`` at output position ``out_idx[i]``, i.e.
@@ -77,9 +60,8 @@ def _lowpass_matrix(phi_1d: np.ndarray, out_idx: np.ndarray) -> np.ndarray:
 
     Composing the lowpass chain fft -> *phi -> ifft -> crop -> stride
     into ONE (frames, m) real matrix turns up to three FFT passes into a
-    single skinny MXU matmul per axis — measured 24.5x faster at the
-    scattering2d consumer shape (tools/dft_crossover.py), and exact (the
-    same linear operator, reassociated)."""
+    single skinny matmul per axis, exactly (the same linear operator,
+    reassociated)."""
     c = np.fft.ifft(np.asarray(phi_1d, dtype=np.float64)).real
     m = len(c)
     return c[(np.asarray(out_idx)[:, None] - np.arange(m)[None, :]) % m]
@@ -348,8 +330,8 @@ def scattering1d(
     _X_cache: list = []
 
     def full_spec():
-        """fft(xp), computed at most once — the round-5 MXU route only
-        needs the full-length spectrum for the windowed large-r bands."""
+        """fft(xp), computed at most once — the matmul route only needs
+        the full-length spectrum for the windowed large-r bands."""
         if not _X_cache:
             _X_cache.append(_fft(xp.astype(cdtype)))
         return _X_cache[0]
@@ -406,22 +388,10 @@ def scattering1d(
     use_mxu = config.mxu_dft() != "off"
     frames = -(-n // stride)
 
-    def ifft_mag(Z):
-        """|ifft(Z)| — on TPU f32 via :func:`ifft_mag_two_real` (the c64
-        inverse engine measured 1.5x slower than two forward real
-        transforms at these batched shapes)."""
-        import jax as _jax
-        from ..ops.mxu_common import TPU_BACKENDS
-
-        if not (use_mxu and _jax.default_backend() in TPU_BACKENDS
-                and x.dtype == jnp.float32):
-            return jnp.abs(_ifft(Z))
-        return ifft_mag_two_real(Z, cdtype)
-
     def phi_lowpass(u_real, r):
         """S-output lowpass of a rate-r spatial magnitude: composed-matrix
-        matmul for small grids (round 3), block-form time-domain phi conv
-        for large ones (round 4, ops.mxu_bandconv — phi's impulse response
+        matmul for small grids, block-form time-domain phi conv for large
+        ones (ops.mxu_bandconv — phi's impulse response
         is ~1200/r taps, so the third FFT round is a skinny matmul),
         spectral ifft as the hatch."""
         if lowpass_direct_ok(r):
@@ -442,14 +412,12 @@ def scattering1d(
         s0 = lowpass(full_spec(), 1, phi_on(1))
         psi1 = jnp.asarray(bank.psi1_hat, dtype=cdtype)
 
-    # Order-1 envelopes on the MXU route (round-5 reformulation): the
-    # band iFFTs were the row's dominant cost — 131072-point c64 FFT
-    # traffic at the 8x64K audio shape held scattering1d to ~35% of its
-    # bandwidth bound (round-4 accounting). Two exact replacements,
-    # chosen per band by its decimation rate r:
+    # Order-1 envelopes on the matmul route: instead of one full-length
+    # band iFFT per band, two exact replacements chosen per band by its
+    # decimation rate r:
     #  * small r (the expensive near-full-rate top octaves): psi1 is
     #    Gaussian in frequency hence Gaussian in TIME — ~100*r taps —
-    #    so u1 = |x (*) psi1| evaluated at stride r is a strided MXU
+    #    so u1 = |x (*) psi1| evaluated at stride r is a strided
     #    tile conv (ops.mxu_bandconv lane form; complex taps, two real
     #    banks). Exact envelope subsamples (identical to spectral
     #    periodization) up to the 1e-7 tap truncation, no FFT at all.
@@ -498,7 +466,7 @@ def scattering1d(
             specs = jnp.stack(
                 [_windowed_band_spec(bank.psi1_hat[k], r) for k in win_ks],
                 axis=-2)
-            u = ifft_mag(specs)
+            u = jnp.abs(_ifft(specs))
             for i, k in enumerate(win_ks):
                 win_rows[k] = u[..., i, :]
         return jnp.stack(
@@ -507,7 +475,7 @@ def scattering1d(
 
     s1_parts, s1_order = [], []
     v1_store = {}  # k1 -> (group tensor, local row, r1)   [spectral path]
-    u1_store = {}  # k1 -> (group tensor, local row, r1)   [MXU path]
+    u1_store = {}  # k1 -> (group tensor, local row, r1)   [matmul path]
     _v1_group: dict[int, jnp.ndarray] = {}  # lazy fft(u1) per r-group
     for r in sorted(set(r1_of.tolist())):
         idxs = np.nonzero(r1_of == r)[0]
@@ -530,7 +498,7 @@ def scattering1d(
         s1_order.extend(idxs.tolist())
 
     def v1_row(k1):
-        """Lazy fft(u1) for spectral-fallback paths on the MXU route."""
+        """Lazy fft(u1) for spectral-fallback paths on the matmul route."""
         u1g, i, r1 = u1_store[k1]
         if r1 not in _v1_group:
             _v1_group[r1] = _fft(u1g.astype(cdtype))
@@ -541,20 +509,13 @@ def scattering1d(
         # order 2 without ANY further FFT rounds: each path's psi2 is an
         # octave-wide Gaussian = a short impulse response on the k1
         # band's rate-r1 grid, so u2 = |u1 (*) psi2|[::R/r1] is a strided
-        # MXU tile conv (ops.mxu_bandconv), and S2 its phi conv.
-        # Routing note (round-5 hardware A/B, do not retry): replacing the
-        # taps form with a shared fft(u1 group) + per-path truncated small
-        # iFFTs measured WORSE both ways — all-spectral 36.7 ms / 38.8 GB
-        # (the untruncatable R<=4 paths ran full-rate stacked c64 FFTs)
-        # and a hybrid (spectral only when R/r1 >= 8) 20.3 ms / 25.4 GB vs
-        # the all-taps 19.4 ms / 20.4 GB. The taps form stays.
+        # tile conv (ops.mxu_bandconv), and S2 its phi conv.
         by_r1: dict[int, list[int]] = {}
         for p in range(len(bank.paths)):
             by_r1.setdefault(int(r1_of[int(bank.paths[p, 0])]), []).append(p)
-        # Multirate cascade (round 5, second pass): convolving every path
-        # at its SOURCE rate made order-2 work scale as 4*T*m per
-        # path-row regardless of output decimation (a DCE-bisect measured
-        # ~1.6 ms per k2 across ALL k2). The envelope group is therefore
+        # Multirate cascade: convolving every path at its SOURCE rate
+        # would make order-2 work scale as 4*T*m per path-row regardless
+        # of output decimation. The envelope group is therefore
         # anti-alias HALVED between path batches — a ~33-tap Gaussian AA
         # conv whose response is divided out of every later psi2 bank
         # exactly — so each path convolves on the coarsest grid its band
@@ -591,7 +552,7 @@ def scattering1d(
                      for p in plist], axis=-2)
                 psi2_R = jnp.asarray(
                     _gauss_bump(fR, bank.xi2[k2], sig2[k2]), cdtype)
-                u2 = ifft_mag(Vp * psi2_R)
+                u2 = jnp.abs(_ifft(Vp * psi2_R))
             s2_parts.append(phi_lowpass(u2, R))
             s2_order.extend(plist)
 
@@ -846,18 +807,15 @@ def scattering2d(
     X = _fft2(xpad.astype(cdtype))
 
     if config.mxu_dft() != "off":
-        # MXU formulation (round 3 + round 4). Two reassociations, both
-        # measured against the c64 FFT2 engine's ~0.2 TFLOP/s rate at
-        # these batched shapes vs ~35 TFLOP/s for HIGHEST-precision
-        # matmuls (ops/mxu_dft2d.py module docstring):
+        # matmul formulation. Two reassociations:
         #
         # 1. phi is an isotropic (= separable) Gaussian, so the lowpass
         #    chain fft2 -> *phi -> ifft2 -> crop -> stride is two sampled
-        #    real circulants on the SPATIAL array: Ay @ u @ Ax^T (round 3).
+        #    real circulants on the SPATIAL array: Ay @ u @ Ax^T.
         # 2. every band convolution |ifft2(spec * psi)| restricts to psi's
         #    Gaussian support box and collapses to two skinny matmuls —
-        #    the box offset phases die under the modulus (round 4,
-        #    ops.mxu_dft2d.box_ifft2_mag). Scale-0 bumps cover most of the
+        #    the box offset phases die under the modulus
+        #    (ops.mxu_dft2d.box_ifft2_mag). Scale-0 bumps cover most of the
         #    plane, so those maps stay on the spectral path.
         from ..ops import mxu_dft2d as _mm2d
 

@@ -3,7 +3,7 @@
 Reference: jwave/transforms/ShiftingWaveletTransform.java:43-139 — forward
 applies the butterfly to adjacent blocks of size div = 2, 4, 8, ... across
 the array (floor(N/div) full blocks per pass; an odd trailing element passes
-through untouched). On TPU each pass is one batched butterfly over the
+through untouched). Here each pass is one batched butterfly over the
 reshaped full-block prefix.
 """
 from __future__ import annotations

@@ -5,7 +5,7 @@ slides a 512-sample window by 64 samples over a long signal and recomputes
 ``forwardMODWT`` per window — O(W*M*J) (direct) per slide, with only the
 filter cache amortised. The reference has no incremental API.
 
-TPU-native incremental formulation: the MODWT pyramid is a causal cascade
+Incremental formulation: the MODWT pyramid is a causal cascade
 
     W_j[t] = sum_m h[m] * V_{j-1}[t - m*2^(j-1)],    V_0 = x,
     V_j[t] = sum_m g[m] * V_{j-1}[t - m*2^(j-1)],
@@ -116,7 +116,7 @@ def sliding_modwt_update(state: SlidingState, samples, wavelet, level: int) -> S
         need = _hist_len(m, j)
         ext = jnp.concatenate([state.hist[j], v], axis=-1)  # (..., need + S)
         # out[t] = sum_m f[m] * ext[need + t - m*stride]: M shifted slices
-        # (contiguous reads; a (S, M) tap gather measured slower on TPU)
+        # (contiguous reads rather than an (S, M) tap gather)
         w_new = v_new = None
         for tap in range(m):
             seg = ext[..., need - tap * stride : need - tap * stride + s]

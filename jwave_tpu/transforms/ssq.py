@@ -1,8 +1,7 @@
 """Synchrosqueezed CWT (Daubechies, Lu & Wu 2011) — capability superset.
 
 The reference library has no time-frequency reassignment of any kind; this
-module adds the standard synchrosqueezing transform on top of the fused CWT,
-designed TPU-first:
+module adds the standard synchrosqueezing transform on top of the fused CWT:
 
 - The CWT and its exact time derivative come out of ONE batched program: the
   filter bank ``[psi_hat(a w), i w psi_hat(a w)]`` is stacked on the scale
@@ -109,10 +108,8 @@ def one_integral_constant(wavelet: ContinuousWavelet) -> complex:
     true integral log-divergent, but its contribution below the cutoff is
     ~1e-7 of C; see module docstring).
 
-    The integrand runs under ``jax.jit`` with real/imag fetched separately:
-    some TPU backends implement neither eager complex ops nor complex
-    device->host transfers. Cached per wavelet configuration (the jit would
-    otherwise recompile on every inverse call).
+    The integrand runs under ``jax.jit``, cached per wavelet configuration
+    (the jit would otherwise recompile on every inverse call).
     """
     key = (type(wavelet).__name__,
            tuple(sorted((k, v) for k, v in vars(wavelet).items()
@@ -159,6 +156,12 @@ def _bin_index(f_inst, freqs_np: np.ndarray):
     return (jnp.searchsorted(jnp.asarray(edges), f_inst) - 1).astype(jnp.int32)
 
 
+#: the form ``reassign="auto"`` takes on every backend: the one measured
+#: faster at the ssq bench shape (8 x 65536, 64 scales) on the CPU and on
+#: an H100 (3.56 ms vs 9.90 ms for "dense"; chip_smoke.py times both)
+AUTO_REASSIGN = "scatter"
+
+
 def _squeeze_plane(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: str,
                    reassign: str = "auto"):
     """Phase transform + weighted reassignment of a (…, S, N) coefficient
@@ -168,12 +171,9 @@ def _squeeze_plane(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: st
     scale-sharded paths — a sharded caller squeezes its local scale block
     with the full grid and psums the planes.
 
-    ``reassign``: "scatter" (one scatter-add; fast on CPU), "dense" (masked
-    compare-and-reduce over the bin axis; the TPU path — data-dependent
-    scatters serialize on the TPU and measured 310x slower than the fused
-    dense reduction at the bench shape), "pallas" (VMEM-tiled kernel,
-    ops/pallas_reassign.py — reads the contributions once instead of once
-    per bin row), or "auto" (dense on accelerators, scatter on CPU).
+    ``reassign``: "scatter" (one scatter-add), "dense" (masked
+    compare-and-reduce over the bin axis: no data-dependent addressing, but
+    O(bins * scales * N) work), or "auto" (``AUTO_REASSIGN``).
     """
     n_scales, n = W.shape[-2:]
     n_bins = freqs_np.shape[0]
@@ -197,20 +197,9 @@ def _squeeze_plane(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: st
         k_idx = jnp.where(keep & (k_idx >= 0) & (k_idx < n_bins), k_idx, n_bins)
 
     if reassign == "auto":
-        reassign = "scatter" if jax.default_backend() == "cpu" else "dense"
-    if reassign == "pallas":
-        # VMEM-tiled kernel: reads the contributions once instead of once
-        # per bin row (ops/pallas_reassign.py); opt-in pending hardware
-        # benchmarking against the dense XLA form. The kernel computes in
-        # float32 (the VPU's width) — passing it here is an explicit opt-in,
-        # and the complex64 result dtype makes the precision visible
-        from ..ops.pallas_reassign import reassign_pallas
-
-        return reassign_pallas(contrib.astype(jnp.complex64), k_idx, n_bins)
+        reassign = AUTO_REASSIGN
     if reassign == "dense":
-        # one fused compare-select-reduce per bin row: no data-dependent
-        # addressing anywhere, so XLA tiles it onto the VPU (8.6 ms vs the
-        # scatter's 2.7 s at 8x64x65536 on a v5e)
+        # one fused compare-select-reduce per bin row
         ar = jnp.arange(n_bins, dtype=k_idx.dtype)[:, None, None]  # (K, 1, 1)
         mask = k_idx[..., None, :, :] == ar  # (..., K, S, N), fused
         re = jnp.sum(jnp.where(mask, jnp.real(contrib)[..., None, :, :], 0), axis=-2)
@@ -218,7 +207,7 @@ def _squeeze_plane(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: st
         return jax.lax.complex(re, im)
     if reassign != "scatter":
         raise JWaveFailure(
-            f"ssq_cwt - reassign must be 'auto', 'dense', 'scatter' or 'pallas', got {reassign!r}"
+            f"ssq_cwt - reassign must be 'auto', 'dense' or 'scatter', got {reassign!r}"
         )
 
     b_idx = jnp.broadcast_to(jnp.arange(n), (n_scales, n))
@@ -226,8 +215,8 @@ def _squeeze_plane(W, dW, wgt, freqs_np: np.ndarray, gamma_abs, out_of_range: st
     def _reassign_one(c, k):
         return jnp.zeros((n_bins, n), c.dtype).at[k, b_idx].add(c, mode="drop")
 
-    # complex scatter-add is UNIMPLEMENTED on some TPU backends — reassign
-    # the real/imag planes as one extra vmapped REAL scatter (same math)
+    # the real/imag planes go as one extra vmapped REAL scatter (same math
+    # as a complex scatter-add)
     fn = _reassign_one
     for _ in range(W.ndim - 1):  # leading batch dims + the (re, im) axis
         fn = jax.vmap(fn)
@@ -285,10 +274,8 @@ def ssq_cwt(
         off the grid or negative, and dropping that mass costs ~1%
         reconstruction error on two-tone signals. "drop" discards it for a
         cleaner display.
-      reassign: reassignment kernel — "auto" (default; dense masked
-        reduction on accelerators, scatter-add on CPU), "dense", "scatter",
-        or "pallas" (VMEM-tiled TPU kernel, float32 only). See
-        :func:`_squeeze_plane`.
+      reassign: reassignment form — "auto" (default, ``AUTO_REASSIGN``),
+        "dense" or "scatter". See :func:`_squeeze_plane`.
 
     Returns an :class:`SSQResult`; ``sum_k Tx[k, b]`` over bins equals the
     weighted scale sum ``sum_j W(a_j, b) a_j^{-1/2} dln(a_j)`` of the kept
@@ -344,7 +331,7 @@ def _ridge_dp_one(energy, penalty: float):
     Forward pass is a ``lax.scan`` over time carrying the (K,) running score
     (the K x K transition candidates are one broadcast subtract — no
     data-dependent control flow); backtracking is a second reversed scan
-    over the stored argmax pointers. jit/vmap/TPU friendly throughout.
+    over the stored argmax pointers. jit/vmap friendly throughout.
     """
     k_bins = energy.shape[0]
     ar = jnp.arange(k_bins)

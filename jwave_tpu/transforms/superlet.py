@@ -8,7 +8,7 @@ of cycle counts at each frequency, keeping the sharpest localization of
 every member — "super-resolution" time-frequency analysis that resolves
 tone pairs and brief bursts no single fixed-Q CWT can separate.
 
-TPU formulation: each order's response is the library's fused FFT-path
+Formulation: each order's response is the library's fused FFT-path
 CWT (one batched (scales, freq) multiply + inverse FFT); the order loop
 unrolls at trace time into ONE XLA program, the per-order magnitudes are
 peak-normalized (a matched unit tone reads 1/2 at every order, so the

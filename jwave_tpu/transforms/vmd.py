@@ -7,7 +7,7 @@ analytic-shifted modes subject to (soft) exact reconstruction — the
 modern, optimization-based alternative to EMD that the reference library
 (raw wavelet transforms only) has nothing comparable to.
 
-TPU-first formulation:
+Formulation:
 
 - The entire ADMM solver runs in the frequency domain on the positive
   half-spectrum: every update is elementwise over a static (K, F) grid —

@@ -4,10 +4,10 @@ Reference: jwave/transforms/WaveletPacketTransform.java:96-189 — at level l
 the butterfly is applied to all ``g = N/h`` packets of length ``h``. The
 reference parallelizes this with a ForkJoinPool
 (ParallelWaveletPacketTransform.java:197-233, thresholds packet>=64 and
-count>=8); on TPU the packet axis is simply a reshape into a leading batch
+count>=8); here the packet axis is simply a reshape into a leading batch
 dimension — and, further, up to 6 consecutive levels are fused into ONE
 strided circular convolution with a composite (noble-identity) filter bank
-(see jwave_tpu.ops.composite), cutting HBM traffic by the fusion factor.
+(see jwave_tpu.ops.composite), cutting memory traffic by the fusion factor.
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ def _chunk_schedule(n: int, level: int, fb) -> list[tuple[int, int]]:
 
 def _interleaved_ok(x, n: int, level: int, fb, fused: bool, who: str):
     """layout='interleaved' needs the whole transform to run as ONE fused
-    MXU chunk (the native tile layout is only defined there)."""
+    tile-matmul chunk (the native tile layout is only defined there)."""
     from ..ops.mxu_wpt import mxu_wpt_eligible
 
     sched = _chunk_schedule(n, level, fb)
@@ -60,10 +60,10 @@ def _interleaved_ok(x, n: int, level: int, fb, fused: bool, who: str):
         and mxu_wpt_eligible(x, level)
     ):
         raise JWaveFailure(
-            f"{who} - layout='interleaved' requires the single-chunk MXU path "
+            f"{who} - layout='interleaved' requires the single-chunk tile path "
             f"(N % 128 == 0, 1 <= level <= {FUSE_MAX_LEVELS}, composite bank "
-            f"<= {FUSE_MAX_TAPS} taps, fused=True, and the MXU butterfly dial "
-            f"enabled); use layout='subband' otherwise"
+            f"<= {FUSE_MAX_TAPS} taps, fused=True, and "
+            f"config.set_mxu_butterfly('on')); use layout='subband' otherwise"
         )
 
 
@@ -72,9 +72,9 @@ def wpt(x, wavelet, level: int | None = None, fused: bool = True,
     """Forward WPT along the last axis (length 2^p), batched over the rest.
 
     ``layout='subband'`` (default) returns the reference's subband-major
-    order. ``layout='interleaved'`` returns the MXU kernel's native tile
+    order. ``layout='interleaved'`` returns the tile kernel's native tile
     layout (lane ``p*S+s`` of tile j = position ``j*P+p`` of subband s),
-    skipping the HBM-bound relayout — use it for elementwise pipelines
+    skipping the memory-bound relayout — use it for elementwise pipelines
     (threshold/denoise/energy) that end in ``iwpt(..., layout='interleaved')``.
     """
     import jax.numpy as jnp
@@ -244,7 +244,7 @@ def best_basis(x, wavelet, max_level: int | None = None, cost: str = "shannon",
     """Coifman–Wickerhauser best wavelet-packet basis along the last axis.
 
     Computes the full packet tree to ``max_level`` (one batched butterfly
-    pass per level — each rides the MXU path on TPU), scores every node
+    pass per level), scores every node
     with an additive cost ('shannon' entropy, 'threshold' count above
     ``threshold``, or 'l1'), and selects the minimal-cost disjoint cover by
     the classic bottom-up dynamic program. For batched input one shared

@@ -9,14 +9,14 @@ suppress the cross-terms at a controllable resolution cost. Together
 with ssq_cwt (reassignment) and superlet (geometric-mean sharpening),
 this completes the classical TF-analysis toolbox.
 
-TPU formulation: the instantaneous autocorrelation
+Formulation: the instantaneous autocorrelation
 ``K[t, m] = z[t + m] conj(z)[t - m]`` is Hermitian in the lag, so only
 its ``m >= 0`` half is materialized — as shifted-slice products of one
-zero-padded copy (contiguous reads; the former static gather measured
-~30x slower) — and the lag-to-frequency step is TWO real MXU matmuls
-(``ops/mxu_dft.hermitian_spectrum``, measured 4.4x the XLA FFT engine's
-rate at this shape); both smoothing windows are elementwise or
-small-kernel convolutions — everything batched over leading axes and
+zero-padded copy (contiguous reads, no gather) — and the lag-to-frequency
+step is one FFT of the Hermitian-completed lag buffer (or, with
+``config.set_mxu_dft("on")``, TWO real matmuls,
+``ops/mxu_dft.hermitian_spectrum``); both smoothing windows are
+elementwise or small-kernel convolutions — everything batched over leading axes and
 jit/vmap/grad-compatible. The analytic signal is used (standard
 practice: it halves the cross-terms and removes negative-frequency
 aliasing), so frequencies span [0, fs/2) over ``n_bins`` rows.
@@ -79,11 +79,9 @@ def wigner_ville(
     # instantaneous autocorrelation K[t, j] = z[t + tau_j] conj(z[t - tau_j]),
     # zero outside the signal. K is HERMITIAN in tau (K[-tau] = conj(K[tau])
     # exactly, pad included), so only tau = 0..m is materialized — half the
-    # table build and half its HBM. Each lag is a shifted-slice product of
+    # table build and half its memory. Each lag is a shifted-slice product of
     # ONE zero-padded copy (out-of-range lags hit the pad) — contiguous
-    # reads the TPU vector units stream at HBM speed, where the former
-    # (N, 2m+1) gather ran ~30x slower (round-3 reformulation; measured in
-    # docs/PERFORMANCE.md).
+    # reads instead of an (N, 2m+1) gather.
     pad = [(0, 0)] * (z.ndim - 1) + [(m, m)]
     zp = jnp.pad(z, pad)
     tau = np.arange(0, m + 1)
@@ -117,11 +115,10 @@ def wigner_ville(
         )
 
     # lag -> frequency. The spectrum of a Hermitian lag sequence is REAL
-    # and needs only the tau >= 0 half: two real (.., m+1) x (m+1, n_bins)
-    # matmuls on the MXU (ops/mxu_dft.hermitian_spectrum) — measured ~5x
-    # the XLA FFT engine's rate at this shape (tools/dft_crossover.py).
-    # `config.set_mxu_dft('off')` restores the circular-buffer FFT form.
-    if mxu_dft.eligible(n_bins, K.dtype, max_n=1024):
+    # and needs only the tau >= 0 half: either two real (.., m+1) x
+    # (m+1, n_bins) matmuls (ops/mxu_dft.hermitian_spectrum, when
+    # `config.set_mxu_dft('on')`) or the circular-buffer FFT form.
+    if mxu_dft.eligible():
         tfr = mxu_dft.hermitian_spectrum(K, n_bins)
     else:
         lead = K.shape[:-1]

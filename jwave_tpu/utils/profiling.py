@@ -1,8 +1,8 @@
 """Profiling & timing helpers.
 
 The reference has no product tracing — only test-side System.nanoTime
-wrappers (PerformanceTestUtils.java:72-140). This module provides the TPU
-build's observability: jax.profiler trace capture and a throughput timer
+wrappers (PerformanceTestUtils.java:72-140). This module provides this
+library's observability: jax.profiler trace capture and a throughput timer
 that is safe against async dispatch.
 """
 from __future__ import annotations

@@ -1,13 +1,11 @@
 """Order statistics without sorting — radix-select on float bits.
 
 The MAD noise estimate (denoise.py) needs ONE order statistic of
-``|detail|`` per band, but ``jnp.median`` pays for a full sort: the
-bitonic network is ~log^2(N) HBM passes and measured as the dominant
-cost of the denoise rows (docs/PERFORMANCE.md — 0.55 of 0.61 ms at
-8x65536).  For NON-NEGATIVE floats the IEEE bit pattern is monotone in
-the value, so the k-th smallest element can be built bit-by-bit from the
-MSB — a fixed ``itemsize*8`` compare+count passes, each a streaming
-VPU reduce, with EXACTLY the sort-path result (the same order statistic,
+``|detail|`` per band, but ``jnp.median`` pays for a full sort.  For
+NON-NEGATIVE floats the IEEE bit pattern is monotone in the value, so the
+k-th smallest element can be built bit-by-bit from the MSB — a fixed
+``itemsize*8`` compare+count passes, each a streaming reduce, with
+EXACTLY the sort-path result (the same order statistic,
 bit for bit; even-N medians average the same two middle elements).
 
 The reference computes no order statistics at all (its compressors
@@ -83,15 +81,7 @@ def _median_nonneg_jvp(primals, tangents):
 def median_abs(a, force: bool | None = None):
     """``median(|a|)`` along the last axis.
 
-    Routes to radix-select on TPU backends (measured faster than the
-    sort; identical result) and to ``jnp.median`` elsewhere; ``force``
-    overrides (tests pin both paths against each other)."""
-    from ..ops.mxu_common import TPU_BACKENDS
-
-    use = (
-        force
-        if force is not None
-        else jax.default_backend() in TPU_BACKENDS
-    )
+    ``jnp.median`` by default; ``force=True`` takes the radix-select
+    (identical result — tests pin both paths against each other)."""
     m = jnp.abs(a)
-    return median_nonneg(m) if use else jnp.median(m, axis=-1)
+    return median_nonneg(m) if force else jnp.median(m, axis=-1)

@@ -1,7 +1,7 @@
 """Performance-variant and parallel-variant facades (reference API parity).
 
 The reference ships JVM-specific performance variants (SURVEY.md §2.3/§2.6)
-whose *capabilities* carry over but whose *mechanisms* are obsolete on TPU:
+whose *capabilities* carry over but whose *mechanisms* are obsolete under XLA:
 
   * buffer pooling / in-place APIs -> XLA buffer reuse + donation,
   * ForkJoinPool task trees -> batched tensor axes in one fused kernel,
@@ -119,7 +119,7 @@ class EfficientMODWTTransform(MODWTTransform):
 
 class ParallelWaveletPacketTransform(WaveletPacketTransform):
     """Reference ParallelWaveletPacketTransform.java:36-305 — ForkJoinPool
-    over packets with size thresholds and pool lifecycle. On TPU the packet
+    over packets with size thresholds and pool lifecycle. Here the packet
     axis is a tensor dimension of one fused kernel: this alias IS the
     parallel variant, with no thresholds and nothing to shut down. For
     multi-chip scaling see jwave_tpu.parallel.batch_sharded /

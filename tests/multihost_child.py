@@ -4,12 +4,12 @@ Usage: python multihost_child.py <process_id> <coordinator_port>
 
 Each process contributes 4 virtual CPU devices (8 global) and runs:
   1. ``initialize_distributed`` against a localhost coordinator
-     (the multi-host entry the TPU build adds over the single-JVM
+     (the multi-host entry this library adds over the single-JVM
      reference, SURVEY.md §5.8),
   2. a cross-process ``batch_sharded`` WPT on a global array assembled
      from process-local shards,
   3. a cross-process halo-exchange MODWT (``ppermute`` rides the Gloo
-     CPU collectives here; ICI on a real pod).
+     CPU collectives here).
 Every local shard is checked against a single-device computation of the
 full problem (both processes build identical inputs from a shared seed).
 """

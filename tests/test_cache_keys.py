@@ -91,8 +91,7 @@ def test_imodwt_empty_input_all_methods():
     empty = jnp.zeros((3, 4, 0))
     out = jw.imodwt(empty, "db4")
     assert out.shape == (3, 0) and out.dtype == empty.dtype
-    # explicit MXU path must not crash either (previously IndexError via
-    # the AUTO gate on TPU backends)
+    # a float32 stack must not crash either
     out2 = jw.imodwt(jnp.zeros((2, 0), jnp.float32), "db4")
     assert out2.shape == (0,)
 

@@ -173,3 +173,14 @@ def test_rounding_error_accumulation(rng):
         cur = f(cur)
     assert float(np.max(np.abs(np.asarray(cur) - x))) < 1e-10
 
+
+def test_public_fwt2d_fallback_matches(rng):
+    # public fwt2d/ifwt2d run the separable path on every backend
+    from jwave_tpu.transforms.ndim import forward_2d
+
+    x = jnp.asarray(rng.standard_normal((128, 256)))
+    ref = forward_2d(lambda v, l: jw.fwt(v, "db4", l), x, 2, 2)
+    np.testing.assert_allclose(np.asarray(jw.fwt2d(x, "db4", 2, 2)),
+                               np.asarray(ref), atol=1e-12)
+    back = jw.ifwt2d(ref, "db4", 2, 2)
+    np.testing.assert_allclose(np.asarray(back), np.asarray(x), atol=1e-10)

@@ -1,6 +1,6 @@
 """JAX transformation compatibility: grad / vmap / jit compose with every
 transform — capabilities the reference (plain Java) cannot express, and a
-prerequisite for using the transforms inside larger TPU training programs."""
+prerequisite for using the transforms inside larger JAX programs."""
 import numpy as np
 import jax
 import jax.numpy as jnp

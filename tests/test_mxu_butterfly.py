@@ -119,7 +119,7 @@ def test_eligibility_gates():
         assert not mxu_butterfly_eligible(x)
     finally:
         config.set_mxu_butterfly("auto")
-    # auto on CPU: stays on the conv path (golden stability)
+    # auto: the conv path on every backend
     assert not mxu_butterfly_eligible(x)
     with pytest.raises(ValueError):
         config.set_mxu_butterfly("sometimes")
@@ -255,7 +255,7 @@ def test_dual_butterfly_matches_two_plain(h):
 
 def test_dtcwt_roundtrip_forced_mxu(force_mxu):
     """DTCWT 1D/2D roundtrips stay exact with the fused dual rounds forced
-    on (the TPU hot path, validated at f64 on CPU)."""
+    on (validated at f64 on CPU)."""
     x = jnp.asarray(RNG.standard_normal((2, 512)))
     r = jw.dtcwt(x, 4)
     np.testing.assert_allclose(jw.idtcwt(r), x, atol=1e-10)

@@ -8,7 +8,7 @@ import pytest
 
 import jwave_tpu as jw
 from jwave_tpu.transforms.modwt import ConvolutionMethod
-from jwave_tpu.ops.mxu_modwt import mxu_tile_count, MXU_TILE_BUDGET
+from jwave_tpu.ops.mxu_modwt import mxu_tile_count
 
 
 RNG = np.random.default_rng(20260817)
@@ -67,10 +67,10 @@ def test_mxu_rejects_unaligned_length():
 
 @pytest.mark.slow
 def test_tile_budget_policy():
-    # shallow levels stay well inside the AUTO budget; level-13 db4
-    # composites (support ~57k) blow it, routing AUTO elsewhere
+    # the tile cost follows the composite support: 14 tiles at level 5,
+    # hundreds once level-13 db4 composites (support ~57k) wrap
     assert mxu_tile_count("db4", 5, 65536) == 14
-    assert mxu_tile_count("db4", 13, 65536) > MXU_TILE_BUDGET
+    assert mxu_tile_count("db4", 13, 65536) > 96
 
 
 @pytest.mark.slow

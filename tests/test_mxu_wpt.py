@@ -98,12 +98,12 @@ def test_eligibility_gates():
         assert not mxu_wpt_eligible(x, 3)
     finally:
         config.set_mxu_butterfly("auto")
-    assert not mxu_wpt_eligible(x, 3)  # auto on CPU: conv path (goldens)
+    assert not mxu_wpt_eligible(x, 3)  # auto: conv path on every backend
 
 
 class TestInterleavedLayout:
     """layout='interleaved' (round-2 verdict item 4): the MXU kernel's
-    native tile layout, skipping the HBM-bound subband-major relayout for
+    native tile layout, skipping the memory-bound subband-major relayout for
     elementwise pipelines."""
 
     def test_roundtrip_exact(self, force_mxu):

@@ -50,7 +50,7 @@ class TestMedian:
         )
 
     def test_mad_sigma_routing_is_value_neutral(self, rng):
-        """The TPU routing cannot change denoise results: the radix
+        """Forcing the radix path cannot change denoise results: the radix
         median equals the sort median bit-for-bit on the MAD input."""
         import jwave_tpu as jw
         from jwave_tpu.utils import select as S

@@ -253,33 +253,3 @@ class TestReviewRegressions:
         f = jax.jit(lambda r: jw.issq_cwt(r, "morlet", band=(30.0, 70.0)))
         eager = jw.issq_cwt(res, "morlet", band=(30.0, 70.0))
         np.testing.assert_allclose(np.asarray(f(res)), np.asarray(eager), atol=1e-10)
-
-    @pytest.mark.slow
-    def test_pallas_reassign_grad_and_f64_guard(self, rng):
-        # the custom VJP (a gather) must match the scatter path's gradient
-        scales = jw.generate_log_scales(0.02, 0.5, 16)
-        x32 = jnp.asarray(rng.standard_normal(256), dtype=jnp.float32)
-
-        def energy(sig, method):
-            tx = jw.ssq_cwt(sig, scales, "morlet", 100.0, reassign=method).Tx
-            return jnp.sum(jnp.abs(tx) ** 2)
-
-        import jax.experimental.pallas as pl
-        from jwave_tpu.ops import pallas_reassign as pr
-
-        orig = pl.pallas_call
-        patched = lambda *a, **kw: orig(*a, **{**kw, "interpret": True})
-        pr.pl.pallas_call = patched
-        try:
-            g_p = jax.grad(lambda s: energy(s, "pallas"))(x32)
-            g_s = jax.grad(lambda s: energy(s, "scatter"))(x32)
-            np.testing.assert_allclose(np.asarray(g_p), np.asarray(g_s),
-                                       atol=1e-3 * float(jnp.abs(g_s).max()))
-        finally:
-            pr.pl.pallas_call = orig
-        # the raw op rejects 64-bit inputs (ssq_cwt's reassign="pallas" is an
-        # explicit opt-in and casts to complex64 before calling it)
-        with pytest.raises(jw.JWaveFailure):
-            pr.reassign_pallas(
-                jnp.zeros((4, 128), dtype=jnp.complex128),
-                jnp.zeros((4, 128), dtype=jnp.int32), 8)

@@ -1,30 +1,30 @@
 #!/usr/bin/env python3
-"""Speed-of-light accounting for the headline bench rows (docs/PERFORMANCE.md).
+"""Speed-of-light accounting for the bench workloads.
 
-For every headline workload this derives, from the algorithm itself:
+For every workload this derives, from the algorithm itself:
 
-  * ``bytes``  — the *minimum* HBM traffic: read each input once, write each
-    output once (f32). Intermediates that XLA keeps in VMEM/registers are
-    not charged; if a path spills, achieved GB/s can exceed this estimate's
-    implied utilisation (it never flatters the kernel).
+  * ``bytes``  — the *minimum* device-memory traffic: read each input once,
+    write each output once (f32). Intermediates a fused kernel could keep
+    on chip are not charged, so the estimate never flatters a kernel.
   * ``flops``  — the FLOPs the chosen formulation actually issues (FMA = 2).
-    For MXU tile formulations that includes the structural zeros in the
-    banded weight tiles — the systolic array multiplies them regardless, so
-    they are real issue slots, and charging them is what makes %peak honest.
+    For the banded tile-matmul formulations (ops/mxu_*.py) that includes
+    the structural zeros in the weight tiles: the matmul multiplies them
+    regardless.
 
-and combines them with a measured per-application time into achieved GB/s /
-TFLOP/s, percent of the engine peak, and the speed-of-light time
+and combines them with a measured per-application time into achieved GB/s
+and TFLOP/s, their share of the device's peaks, and the speed-of-light time
 
     t_SoL = max(bytes / BW_peak, flops / FLOPS_peak)
 
-Peaks assumed (TPU v5e, public figures):
-  HBM        819 GB/s
-  MXU bf16   197 TFLOP/s; f32 via HIGHEST = 6-pass bf16 -> 197/6 = 32.8
-  VPU f32    ~7.7 TFLOP/s (8x128 lanes x 4 ALUs x 2 FLOP/FMA @ 940 MHz)
+Every workload runs at the library's default ``conv_precision("highest")``,
+i.e. true float32 arithmetic, so FLOPs count against the fp32 peak (FFTs,
+convolutions and matmuls alike). Peaks come from ``PEAKS``, keyed by the
+``device_kind`` JAX reports; an unknown kind is an error.
 
-Measured times default to the round-2 bench (python bench.py on the v5e);
-pass ``--times file.json`` with ``{"workload": ms}`` or a BENCH_r*.json to
-re-evaluate, and ``--markdown`` for the PERFORMANCE.md table.
+Usage: ``python tools/roofline.py --device-kind "NVIDIA H100 80GB HBM3"
+--times times.json [--markdown]`` with ``{"workload": ms}`` (or a bench
+output line's ``details``) measured on that device. Workloads without a
+time are reported as not measured.
 """
 from __future__ import annotations
 
@@ -32,21 +32,25 @@ import argparse
 import json
 import math
 import sys
+from pathlib import Path
 
-HBM_BW = 819e9
-MXU_F32_HIGHEST = 197e12 / 6.0
-MXU_BF16 = 197e12
-VPU_F32 = 7.7e12
-# attainable XLA complex-FFT rate on this backend, MICROBENCHMARKED on the
-# v5e (round 3): c64 FFT at (64, 65536) 0.96 T, (8, 256K) 0.92 T,
-# (272, 32768) 0.95 T, (1, 2M) 1.55 T, but (32768, 512) only 0.32 T —
-# FFT-dominated rows whose internal transforms shrink below ~4K points
-# (scattering's decimated grids, WVD's 512-bin lag FFTs) are bounded by
-# the backend's small-FFT rate, so their % of this 1.0 T anchor
-# understates attainable headroom. Anchor = the large-transform plateau.
-FFT_EFF = 1.0e12
+#: published peaks per device kind (dense rates, no sparsity)
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_Bps": 3.35e12,
+        "fp32_flops": 67e12,
+        "tf32_flops": 495e12,
+        "source": "NVIDIA H100 data sheet (SXM5, 700 W)",
+    },
+}
 
-PEAKS = {"mxu": MXU_F32_HIGHEST, "mxu-bf16": MXU_BF16, "vpu": VPU_F32, "fft": FFT_EFF}
+
+def device_peaks(kind: str) -> dict:
+    """Peak rates of ``kind`` (``jax.devices()[0].device_kind``)."""
+    if kind not in PEAKS:
+        raise KeyError(f"no peak rates for device kind {kind!r}; add it to tools/roofline.py PEAKS")
+    return PEAKS[kind]
+
 
 B, N = 64, 65536  # the 1D bench config
 F32 = 4
@@ -69,18 +73,7 @@ def modwt_mxu_model():
     return {
         "flops": rows * tiles * 128 * 128 * 2,
         "bytes": F32 * B * N * (1 + 6),
-        "engine": "mxu",
         "note": f"{tiles} banded 128x128 tiles (structural zeros charged)",
-    }
-
-
-def modwt_pallas_model():
-    m, j = 8, 5  # db4 taps, levels; 2 subbands per level, FMA=2
-    return {
-        "flops": B * N * 2 * m * j * 2,
-        "bytes": F32 * B * N * (1 + 6),
-        "engine": "vpu",
-        "note": "J levels x 2 subbands x M roll/FMA taps",
     }
 
 
@@ -90,7 +83,6 @@ def modwt_fft_model():
     return {
         "flops": B * (_rfft_flops(N) + (j + 1) * _rfft_flops(N) + mults),
         "bytes": F32 * B * N * (1 + 6),
-        "engine": "fft",
         "note": "1 rfft + (J+1) irfft (telescoped) + pointwise spectra",
     }
 
@@ -102,7 +94,6 @@ def fwt1d_model():
     return {
         "flops": B * h_total * m * 2,
         "bytes": F32 * B * N * 2,
-        "engine": "mxu",
         "note": "stride-2 conv form; level lengths sum to ~2N",
     }
 
@@ -117,36 +108,18 @@ def fwt1d_mxu_model():
     return {
         "flops": B * (h_total * per_h + h_conv * 8 * 2),
         "bytes": F32 * B * N * 2,
-        "engine": "mxu",
         "note": "banded pair-tile matmuls (structural zeros charged)",
     }
 
 
-def fwt2d_pallas_model():
-    # round 4: the whole standard decomposition runs as TWO Pallas passes
-    # (ops/pallas_pyramid.py) — each axis pass reads the matrix once and
-    # writes it once (transposed); every level's butterflies stay in VMEM.
-    # Issued FLOPs are identical to the XLA pyramid's banded tiles.
-    n = 2048
-    split_h = [2048, 1024]
-    flops = 2 * sum(n * h * 768 for h in split_h) + 2 * n * 512 * 2 * 512
-    return {
-        "flops": flops,
-        "bytes": 2 * F32 * n * n * 2,  # one read + one write per axis pass
-        "engine": "mxu",
-        "note": "2 fused Pallas passes: 1 read + 1 transposed write each",
-    }
-
-
 def fwt2d_model():
-    # separable 2048x2048 rectangle decomposition via the fused MXU pyramid
-    # (ops.mxu_pyramid): per axis pass, split pair-tile butterflies at
+    # separable 2048x2048 rectangle decomposition via the fused tile-matmul
+    # pyramid (ops.mxu_pyramid, set_mxu_butterfly("on")): per axis pass, split pair-tile butterflies at
     # h = 2048/1024/512 (768 FLOPs per processed sample incl. structural
     # zeros) + one dense (256,256) composed tail; each level materializes
     # its output (read+write per level is the formulation's floor).
-    # The *algorithmic* one-pass bound (read+write the image once, conv
-    # FLOPs) is 0.04 ms — reachable only by a fully fused whole-transform
-    # kernel, not by any per-level XLA program.
+    # The *algorithmic* one-pass bound (read+write the image once) is
+    # reachable only by a fully fused whole-transform kernel.
     n, levels = 2048, 6
     split_h = [2048, 1024]  # DENSE_HEAD = 512: heads <= 512 fold densely
     flops = 2 * sum(n * h * 768 for h in split_h) + 2 * n * 512 * 2 * 512
@@ -154,7 +127,6 @@ def fwt2d_model():
     return {
         "flops": flops,
         "bytes": bytes_,
-        "engine": "mxu",
         "note": "fused pyramid: 3 split levels @768 FLOP/sample + dense tail, x2 axes",
     }
 
@@ -168,7 +140,6 @@ def fwt3d_model():
     return {
         "flops": flops,
         "bytes": bytes_,
-        "engine": "mxu",
         "note": "3 axis passes, each ONE dense 256x256 composed matmul",
     }
 
@@ -180,7 +151,6 @@ def wpt_model():
     return {
         "flops": B * N * m_l * 2,
         "bytes": F32 * B * N * 2,
-        "engine": "mxu",
         "note": f"noble-identity composite bank, M_L={m_l}",
     }
 
@@ -196,21 +166,19 @@ def wpt_mxu_model():
     return {
         "flops": rows * e * 128 * 128 * 2,
         "bytes": F32 * B * N * 2,
-        "engine": "mxu",
         "note": f"{e} banded 128x128 tiles (structural zeros charged)",
     }
 
 
 def scattering1d_model():
-    # round-5 formulation (transforms/scattering.py + ops/mxu_bandconv.py):
+    # the matmul route (transforms/scattering.py + ops/mxu_bandconv.py):
     # order-1 bands with decimation r <= 8 are strided complex tap convs
     # of the signal itself (NO FFT — Gaussian bumps are ~100*r taps in
     # time); bands with r > 8 fold psi1's support window onto the short
     # padded/r grid and pay two real-input ffts there (ifft_mag). The
     # only full-length FFT is the one forward fft of the padded signal
     # (needed by the windowed bands). Order 2 and every lowpass stay
-    # strided tile convs / composed matmuls on the MXU, converted to
-    # FFT-engine-equivalent time for the single-engine SoL.
+    # strided tile convs / composed matmuls; all FLOPs count at fp32.
     import numpy as np
     from jwave_tpu.transforms.scattering import (
         MAX_LOWPASS_M, _sigma_for, scattering_filter_bank)
@@ -245,7 +213,7 @@ def scattering1d_model():
         return f / r
 
     fft_units = 1.0  # X = fft(xp), consumed by the windowed (r > 8) bands
-    mxu = 0.0        # MXU FLOPs (convs + composed lowpass matmuls)
+    mxu = 0.0        # matmul FLOPs (convs + composed lowpass matmuls)
     bytes_ = F32 * b * n  # read x
     frames = -(-n // stride)
     sigma_phi = 0.35 * 2.0 ** (-float(J)) / np.sqrt(2 * np.log(2.0))
@@ -273,7 +241,7 @@ def scattering1d_model():
             S = stride // r
             D = -(-T // S) + 1
             mxu += b * kg * m * (-(-D // 128) * 128) * 2
-    # order 2 via the round-5 multirate cascade (transforms/scattering.py):
+    # order 2 via the multirate cascade (transforms/scattering.py):
     # the group AA-halves between path batches; each path convolves at the
     # coarsest rate its band allows (stride <= 2 there)
     from collections import defaultdict
@@ -324,34 +292,32 @@ def scattering1d_model():
     mults = sum(int(0.8 * bank.xi1[k] * padded) * 6 * b
                 for k in range(len(bank.xi1)) if r1[k] > TAPS_MAX_STRIDE)
     return {
-        "flops": b * fft_units * f + mults + mxu * (FFT_EFF / MXU_F32_HIGHEST),
+        "flops": b * fft_units * f + mults + mxu,
         "bytes": bytes_,
-        "engine": "fft",
-        "note": f"{fft_units:.0f} FFT units (1 fwd + windowed r>8 bands only; r<=8 bands are pure MXU tap convs) ",
+        "note": f"{fft_units:.0f} FFT units (1 fwd + windowed r>8 bands only; r<=8 bands are pure tap convs)",
     }
 
 
 def wvd_model():
-    # round-3 Hermitian reformulation: only the tau>=0 half of the lag
-    # table is built (m+1 shifted-slice products) and the real spectrum
-    # comes from TWO (m+1, n_bins) MXU matmuls (ops/mxu_dft.py)
+    # the Hermitian matmul form (set_mxu_dft("on")): only the tau>=0 half
+    # of the lag table is built (m+1 shifted-slice products) and the real
+    # spectrum comes from TWO (m+1, n_bins) matmuls (ops/mxu_dft.py)
     b, n, nb = 8, 4096, 512
     m = nb // 2 - 1
     k_bytes = 8 * b * n * (m + 1)  # c64 half-plane autocorrelation
     return {
         "flops": b * n * ((m + 1) * 6 + 4 * (m + 1) * nb),
         "bytes": 2 * k_bytes + F32 * b * nb * n,  # build + read K, write tfr
-        "engine": "mxu",
         "note": "m+1 shifted-slice products + Hermitian 2-matmul spectrum",
     }
 
 
 def scattering2d_model():
-    # round-4 box-matmul formulation (ops/mxu_dft2d.py): FFT work is
+    # the box-matmul route (ops/mxu_dft2d.py): FFT work is
     # X fft2 (1) + scale-0 u1 ifft2 (L, boxes ~ full plane) + V1 fft2
     # (J*L); every other band conv is two skinny complex matmuls on the
     # bump's support box, and every lowpass two composed sampled-circulant
-    # matmuls — MXU FLOPs converted to FFT-engine-equivalent time.
+    # matmuls; all FLOPs count at fp32.
     import numpy as np
     from jwave_tpu.transforms.scattering import scattering_filter_bank_2d
     from jwave_tpu.ops.mxu_dft2d import filter_box
@@ -385,10 +351,9 @@ def scattering2d_model():
     mxu += (1 + J * L + p2) * (py * px * frames + frames * px * frames) * 2
     bytes_ += F32 * p2 * py * px + F32 * (1 + J * L + p2) * frames**2
     return {
-        "flops": fft_units * fft2_unit + mxu * (FFT_EFF / MXU_F32_HIGHEST),
+        "flops": fft_units * fft2_unit + mxu,
         "bytes": bytes_,
-        "engine": "fft",
-        "note": f"{fft_units:.0f} fft2 units (was 241 in r3, 650 in r2) + box/lowpass matmuls",
+        "note": f"{fft_units:.0f} fft2 units + box/lowpass matmuls",
     }
 
 
@@ -403,30 +368,26 @@ def superlet_model():
         "flops": b * (len(set(orders)) * _rfft_flops(padded)
                       + channels * (_rfft_flops(padded) + padded * 6)),
         "bytes": 8 * b * channels * padded + F32 * b * nf * n,
-        "engine": "fft",
         "note": f"{channels} CWT channels across 16 orders (geometric mean)",
     }
 
 
 def dtcwt1d_model():
-    # 2 trees x 6 levels of pair-tile MXU butterflies (E = 3 structure:
+    # 2 trees x 6 levels of pair-tile butterflies (E = 3 structure:
     # 768 issued FLOPs per processed sample incl. structural zeros)
     b, n, levels = 8, 65536, 6
     h_total = sum(n >> l for l in range(levels))
     return {
         "flops": b * 2 * h_total * 768,
         "bytes": F32 * b * n * 2,
-        "engine": "mxu",
         "note": "2 trees of pair-tile stride-2 matmuls (zeros charged)",
     }
 
 
 def denoise_modwt_model():
-    # forward MODWT L4 + MAD sigma + threshold + inverse. The transforms
-    # are MXU tile chains (measured alone: 0.045 ms at this batch); the
-    # MAD median runs radix-select (utils/select.py, round 3): 32 bit
-    # passes x 2 order statistics, each a streaming compare+count — where
-    # the former bitonic sort paid ~log^2(N) = 136 passes over HBM.
+    # forward MODWT L4 + MAD sigma + threshold + inverse, as tile-matmul
+    # chains with the radix-select median (utils/select.py, force=True):
+    # 32 bit passes x 2 order statistics, each a streaming compare+count.
     from jwave_tpu.ops.mxu_modwt import mxu_tile_count
 
     b, n, j = 8, 65536, 4
@@ -436,8 +397,7 @@ def denoise_modwt_model():
     return {
         "flops": 2 * rows * tiles * 128 * 128 * 2,
         "bytes": F32 * b * n * (2 * (1 + j + 1)) + F32 * b * n * select_passes,
-        "engine": "mxu",
-        "note": "MXU transform chains + radix-select MAD (32 streaming passes)",
+        "note": "tile transform chains + radix-select MAD (32 streaming passes)",
     }
 
 
@@ -447,112 +407,107 @@ def cwt_model():
     return {
         "flops": _rfft_flops(n) + mults + s * _cfft_flops(n),
         "bytes": F32 * n + 8 * s * n,  # complex64 coefficients out
-        "engine": "fft",
         "note": "1 rfft + 64 pointwise + 64 complex iffts",
     }
 
 
-# measured per-application times (ms), python bench.py on the v5e (f32,
-# conv precision HIGHEST) — round 5, 2026-08-20: MEAN of the two full
-# driver-style runs that day (run-to-run relay spread 10-25%; the raw
-# per-run values are in docs/PERFORMANCE.md's source-artifact note)
-MEASURED_MS = {
-    "modwt_db4_L5 (MXU tiles)": (0.486, modwt_mxu_model),
-    "modwt_db4_L5 (Pallas cascade)": (1.978, modwt_pallas_model),
-    "modwt_db4_L5 (telescoped FFT)": (3.676, modwt_fft_model),
-    "fwt1d_db4_L8 (conv)": (1.355, fwt1d_model),  # round-4 sweep (unchanged path)
-    "fwt1d_db4_L8 (MXU tiles)": (0.245, fwt1d_mxu_model),
-    "fwt2d_db4_L6_2048 (Pallas fused)": (0.396, fwt2d_pallas_model),
-    "fwt2d_db4_L6_2048 (XLA separable)": (0.497, fwt2d_model),
-    "fwt3d_db4_L4_256": (0.967, fwt3d_model),
-    "wpt_db4_L6 (fused conv)": (1.202, wpt_model),  # round-4 sweep (unchanged path)
-    "wpt_db4_L6 (MXU tiles)": (0.305, wpt_mxu_model),
-    "cwt_morlet_64scales_1M": (13.20, cwt_model),
-    "scattering1d_J8_Q8_8x64K": (12.68, scattering1d_model),  # post-cascade (12.31 probe / 13.06 bench)
-    "scattering2d_J3_L8_256": (7.35, scattering2d_model),
-    "wvd_512bins_8x4K": (0.614, wvd_model),
-    "superlet_64f_o16_8x16K": (6.71, superlet_model),
-    "dtcwt1d_L6_8x64K": (0.048, dtcwt1d_model),  # k=256 chain; k<=16 readings were below the relay timer floor
-    "denoise_modwt_8x64K": (0.154, denoise_modwt_model),
+#: one model per formulation; the name says which (AUTO takes the
+#: telescoped FFT, conv and fused-conv forms, the CWT/superlet FFTs and
+#: scattering's matmul route; the others need an explicit switch)
+WORKLOADS = {
+    "modwt_db4_L5 (tile matmuls)": modwt_mxu_model,
+    "modwt_db4_L5 (telescoped FFT)": modwt_fft_model,
+    "fwt1d_db4_L8 (conv)": fwt1d_model,
+    "fwt1d_db4_L8 (tile matmuls)": fwt1d_mxu_model,
+    "fwt2d_db4_L6_2048 (tile pyramid)": fwt2d_model,
+    "fwt3d_db4_L4_256 (tile pyramid)": fwt3d_model,
+    "wpt_db4_L6 (fused conv)": wpt_model,
+    "wpt_db4_L6 (tile matmuls)": wpt_mxu_model,
+    "cwt_morlet_64scales_1M": cwt_model,
+    "scattering1d_J8_Q8_8x64K": scattering1d_model,
+    "scattering2d_J3_L8_256": scattering2d_model,
+    "wvd_512bins_8x4K (Hermitian matmuls)": wvd_model,
+    "superlet_64f_o16_8x16K": superlet_model,
+    "dtcwt1d_L6_8x64K (tile matmuls)": dtcwt1d_model,
+    "denoise_modwt_8x64K (tile matmuls)": denoise_modwt_model,
 }
 
+#: bench.py row -> the formulation it runs at default settings
 BENCH_KEY_MAP = {
-    "modwt_db4_L5": "modwt_db4_L5 (MXU tiles)",
-    "modwt_db4_L5_pallas": "modwt_db4_L5 (Pallas cascade)",
+    "modwt_db4_L5": "modwt_db4_L5 (telescoped FFT)",
     "modwt_db4_L5_fft": "modwt_db4_L5 (telescoped FFT)",
-    "fwt1d_db4_L8": "fwt1d_db4_L8 (MXU tiles)",
-    "fwt1d_db4_L8_conv": "fwt1d_db4_L8 (conv)",
-    "fwt2d_db4_L6_2048": "fwt2d_db4_L6_2048 (Pallas fused)",
-    "fwt2d_db4_L6_2048_xla": "fwt2d_db4_L6_2048 (XLA separable)",
-    "fwt3d_db4_L4_256": "fwt3d_db4_L4_256",
-    "wpt_db4_L6": "wpt_db4_L6 (MXU tiles)",
-    "wpt_db4_L6_conv": "wpt_db4_L6 (fused conv)",
+    "fwt1d_db4_L8": "fwt1d_db4_L8 (conv)",
+    "fwt2d_db4_L6_2048_tiles": "fwt2d_db4_L6_2048 (tile pyramid)",
+    "wpt_db4_L6": "wpt_db4_L6 (fused conv)",
     "cwt_morlet_64scales_1M": "cwt_morlet_64scales_1M",
     "scattering1d_J8_Q8_8x64K": "scattering1d_J8_Q8_8x64K",
     "scattering2d_J3_L8_256": "scattering2d_J3_L8_256",
-    "wvd_512bins_8x4K": "wvd_512bins_8x4K",
     "superlet_64f_o16_8x16K": "superlet_64f_o16_8x16K",
-    "dtcwt1d_L6_8x64K": "dtcwt1d_L6_8x64K",
-    "denoise_modwt_8x64K": "denoise_modwt_8x64K",
 }
 
 
-def rows(times=None):
+def rows(times: dict, kind: str):
+    peaks = device_peaks(kind)
+    bw, fp32 = peaks["hbm_Bps"], peaks["fp32_flops"]
     out = []
-    for name, (default_ms, model) in MEASURED_MS.items():
-        ms = (times or {}).get(name, default_ms)
-        if ms is None:
-            continue
+    for name, model in WORKLOADS.items():
+        ms = times.get(name)
         spec = model()
+        if ms is None:
+            out.append({"workload": name, "ms": "not measured",
+                        "MB_min": spec["bytes"] / 1e6, "GFLOP": spec["flops"] / 1e9})
+            continue
         t = ms * 1e-3
         gbs = spec["bytes"] / t / 1e9
         tfs = spec["flops"] / t / 1e12
-        peak = PEAKS[spec["engine"]]
-        t_sol = max(spec["bytes"] / HBM_BW, spec["flops"] / peak)
+        t_sol = max(spec["bytes"] / bw, spec["flops"] / fp32)
         out.append({
             "workload": name,
-            "engine": spec["engine"],
             "ms": ms,
             "MB_min": spec["bytes"] / 1e6,
             "GFLOP": spec["flops"] / 1e9,
             "GBps": gbs,
-            "pct_hbm": 100 * gbs * 1e9 / HBM_BW,
+            "pct_hbm": 100 * gbs * 1e9 / bw,
             "TFLOPs": tfs,
-            "pct_engine": 100 * tfs * 1e12 / peak,
+            "pct_fp32": 100 * tfs * 1e12 / fp32,
             "sol_ms": t_sol * 1e3,
             "pct_sol": 100 * t_sol / t,
-            "bound": "HBM" if spec["bytes"] / HBM_BW >= spec["flops"] / peak else spec["engine"].upper(),
+            "bound": "HBM" if spec["bytes"] / bw >= spec["flops"] / fp32 else "FP32",
             "note": spec["note"],
         })
     return out
 
 
 def main():
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))  # the models import jwave_tpu
     ap = argparse.ArgumentParser()
-    ap.add_argument("--times", help="JSON of {workload: ms} or a BENCH_r*.json")
+    ap.add_argument("--device-kind", required=True, help="jax.devices()[0].device_kind of the measuring device")
+    ap.add_argument("--times", required=True, help="JSON of {workload: ms} or a bench details line")
     ap.add_argument("--markdown", action="store_true")
     args = ap.parse_args()
 
+    with open(args.times) as f:
+        raw = json.load(f)
     times = {}
-    if args.times:
-        raw = json.load(open(args.times))
-        details = raw.get("details", raw)
-        for k, v in details.items():
-            mapped = BENCH_KEY_MAP.get(k, k)
-            if isinstance(v, dict) and "ms" in v:
-                times[mapped] = v["ms"]
-            elif isinstance(v, (int, float)):
-                times[mapped] = v
+    for k, v in raw.get("details", raw).items():
+        mapped = BENCH_KEY_MAP.get(k, k)
+        if isinstance(v, dict) and "ms" in v:
+            times[mapped] = v["ms"]
+        elif isinstance(v, (int, float)):
+            times[mapped] = v
 
-    table = rows(times)
+    table = rows(times, args.device_kind)
     if args.markdown:
-        print("| Workload | Engine | ms | min MB | GFLOP | GB/s (%HBM) | TFLOP/s (%peak) | SoL ms | % SoL | Bound |")
-        print("|---|---|---|---|---|---|---|---|---|---|")
+        print("| Workload | ms | min MB | GFLOP | GB/s (%HBM) | TFLOP/s (%fp32) | SoL ms | % SoL | Bound |")
+        print("|---|---|---|---|---|---|---|---|---|")
         for r in table:
+            if r["ms"] == "not measured":
+                print(f"| {r['workload']} | not measured | {r['MB_min']:.0f} | {r['GFLOP']:.1f} | | | | | |")
+                continue
             print(
-                f"| {r['workload']} | {r['engine']} | {r['ms']:.2f} | {r['MB_min']:.0f} "
+                f"| {r['workload']} | {r['ms']:.3f} | {r['MB_min']:.0f} "
                 f"| {r['GFLOP']:.1f} | {r['GBps']:.0f} ({r['pct_hbm']:.0f}%) "
-                f"| {r['TFLOPs']:.1f} ({r['pct_engine']:.0f}%) | {r['sol_ms']:.2f} "
+                f"| {r['TFLOPs']:.2f} ({r['pct_fp32']:.0f}%) | {r['sol_ms']:.3f} "
                 f"| {r['pct_sol']:.0f}% | {r['bound']} |"
             )
     else:
